@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
+
+Phases, in order; any failure exits non-zero:
+
+  1. the card (``nvidia-smi`` name and power limit), torch and CUDA
+     versions; build the CUDA kernels from ``src/repro_torch/csrc``;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes: ``slack_propose`` equal bit for bit,
+     ``cost_matrix`` within the stated tolerance; CUDA-event times of
+     kernel, plain version and library call beside the bound;
+  3. ``solve(ASSIGNMENT)`` at the paper's size (Fig. 1: n = 10 000 points
+     in the unit square, euclidean, eps = 0.01) under the default policy
+     and under ``guaranteed=True``, with their certificates and the
+     kernel launch counts;
+  4. ``solve(OT)`` at n = 4096 with Dirichlet masses, eps = 0.05, with its
+     certificates, and an OT solve at n = 512 against scipy's exact LP;
+  5. card against CPU on a ragged batch of 8 instances (n = 128 .. 512)
+     for both problems: integer state equal field by field; the n = 2048
+     assignment cost against ``linear_sum_assignment``;
+  6. one JSON line with every kernel's numbers;
+  7. last line: ``{"ok": true, "device": {...}}``.
+
+It needs one card and exits non-zero when CUDA is unavailable or when it
+is run outside a checkout of the repository.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+# int32 ALU instructions: the fp32 rate counts an FMA as 2 flops, so one
+# instruction per lane per clock is half of it
+INT32_OP_PER_S = FP32_FLOP_PER_S / 2
+
+# the shapes of each phase (see the module docstring)
+SIZES = {
+    # (B, m, n)
+    "slack_propose": [(1, 10_000, 10_000), (16, 1024, 1024)],
+    # (metric, B, m, n, d)
+    "cost_matrix": ([(mt, 1, 10_000, 10_000, 2)
+                     for mt in ("euclidean", "sqeuclidean", "l1")]
+                    + [(mt, 16, 1024, 1024, 2)
+                       for mt in ("euclidean", "sqeuclidean", "l1")]
+                    + [("l1", 1, 2048, 2048, 784)]),
+    "assignment": (10_000, 0.01),                       # (n, eps)
+    "ot": [(4096, 0.05, False), (512, 0.05, True)],     # (n, eps, exact)
+    "card_vs_cpu": [128, 160, 200, 256, 300, 384, 450, 512],
+    "assignment_exact": (2048, 0.05),                   # (n, eps)
+}
+
+# kernel -> (source, Pallas kernel it replaces)
+KERNELS = {
+    "slack_propose": (
+        "src/repro_torch/csrc/slack_propose.cu",
+        "src/repro/kernels/slack_propose.py:86 (slack_propose; "
+        "slack_propose_batched at :157)"),
+    "cost_matrix": (
+        "src/repro_torch/csrc/cost_matrix.cu",
+        "src/repro/kernels/cost_matrix.py:76 (cost_matrix; "
+        "cost_matrix_batched at :117)"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/chip_smoke.json",
+                    help="where the full record of the run is written")
+    args = ap.parse_args()
+
+    root = Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch" / "csrc").is_dir():
+        return fail("src/repro_torch not found beside chip_smoke.py; run "
+                    "it from a checkout of the repository")
+    import torch
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this script "
+                    "drives the port on an NVIDIA GPU")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.core import device as rdev
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(args.seed)
+    dev = torch.device("cuda")
+    record = {"seed": args.seed, "phases": {}}
+    t_start = time.monotonic()
+
+    # -- 1. the card, the build --------------------------------------
+    smi = smi_line()
+    log(f"[1] card: {smi}")
+    log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    build_s = ops.build_kernels()
+    log(f"[1] built {sorted(ops.build_log) or 'no'} kernels in "
+        f"{build_s:.1f} s")
+    for name, text in ops.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[1]   {name}: {line.strip()}")
+    record["card"] = smi
+    record["build_s"] = build_s
+
+    # -- 2. kernels against their plain versions -----------------------
+    kernel_rows = {}
+    record["phases"]["kernels"] = rows = []
+    if not phase_kernels(torch, ops, rng, dev, rows, kernel_rows):
+        return fail("a kernel disagreed with its plain version")
+    log(f"[2] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 3-5: the main path, counted ----------------------------------
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    ok = phase_assignment(torch, rng, dev, record)
+    main_launches = dict(ops.launches)
+    log(f"[3] launches {main_launches}, syncs {dict(rdev.sync_counts)}; "
+        f"done at {time.monotonic() - t_start:.0f} s")
+    if not ok:
+        return fail("full-size assignment")
+    for name in ("slack_propose", "cost_matrix"):
+        if main_launches[name] == 0:
+            return fail(f"the main path never launched {name}")
+
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    ok = phase_ot(torch, rng, dev, record)
+    ot_launches = dict(ops.launches)
+    log(f"[4] launches {ot_launches}, syncs {dict(rdev.sync_counts)}; "
+        f"done at {time.monotonic() - t_start:.0f} s")
+    if not ok:
+        return fail("OT")
+    if ot_launches["slack_propose"] == 0:
+        return fail("the OT path never launched slack_propose")
+
+    if not phase_card_vs_cpu(torch, rng, dev, record):
+        return fail("card against CPU")
+    log(f"[5] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 6. kernels line ------------------------------------------------
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        row = dict(kernel_rows[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ok": row["ok"], "shape": row["shape"]})
+    record["kernels"] = kernels
+    record["main_launches"] = main_launches
+    record["ot_launches"] = ot_launches
+    record["wall_s"] = time.monotonic() - t_start
+    out = root / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1, default=float))
+    log(f"[6] record written to {args.out}")
+    log(smi_line())
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
+    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
+    from repro_torch.kernels.slack_propose import slack_propose_ref
+
+    ok_all = True
+    # slack_propose: duals drawn so y_b + y_a - 1 lies in [0, 32) and c in
+    # [0, 32): about 1/32 of the (available) edges are admissible
+    for b, m, n in SIZES["slack_propose"]:
+        c = torch.as_tensor(rng.integers(0, 32, (b, m, n), dtype=np.int32),
+                            device=dev)
+        y_b = torch.as_tensor(rng.integers(1, 17, (b, m), dtype=np.int32),
+                              device=dev)
+        y_a = torch.as_tensor(rng.integers(0, 16, (b, n), dtype=np.int32),
+                              device=dev)
+        avail = torch.as_tensor(rng.uniform(size=(b, n)) < 0.9, device=dev)
+        active = torch.as_tensor(rng.uniform(size=(b, m)) < 0.95,
+                                 device=dev)
+        salt = torch.as_tensor(rng.integers(0, 2**31 - 1, b,
+                                            dtype=np.int32), device=dev)
+        kargs = (c, y_b, y_a, avail, salt)
+        col, key = ops.slack_propose_batched(*kargs, active_b=active)
+        rcol, rkey = slack_propose_ref(*kargs, active)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(col, rcol) and torch.equal(key, rkey))
+        adm = float(((y_b[:, :, None] + y_a[:, None, :] == c + 1)
+                     & avail[:, None, :]).float().mean())
+        ms = cuda_ms(torch, lambda: ops.slack_propose_batched(
+            *kargs, active_b=active), reps=20)
+        plain_ms = cuda_ms(torch, lambda: slack_propose_ref(*kargs, active),
+                           reps=3, warmup=1)
+        n_active = int(active.sum())
+        nbytes = (4 * n_active * n + 4 * b * m + 4 * b * n + b * n + b * m
+                  + 4 * b + 12 * b * m)
+        nops = 3 * n_active * n   # add, compare, select per element read
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / INT32_OP_PER_S
+        row = {"name": "slack_propose", "shape": [b, m, n],
+               "admissible_frac": adm, "ok": ok,
+               "max_abs_err": float((col - rcol).abs().max()), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "proposing_rows": int((col >= 0).sum())}
+        log(f"[2] {json.dumps(row)}")
+        rows.append(row)
+        ok_all &= ok
+        kernel_rows.setdefault("slack_propose", row)
+        del c, col, key, rcol, rkey
+        torch.cuda.empty_cache()
+
+    # cost_matrix: every metric at the 2-D shapes, l1 on 784-d images
+    for metric, b, m, n, d in SIZES["cost_matrix"]:
+        x = torch.as_tensor(rng.uniform(size=(b, m, d)).astype(np.float32),
+                            device=dev)
+        y = torch.as_tensor(rng.uniform(size=(b, n, d)).astype(np.float32),
+                            device=dev)
+        out = ops.cost_matrix_batched(x, y, metric)
+        ref = cost_matrix_ref(x, y, metric)
+        torch.cuda.synchronize()
+        rtol, atol = tolerance(metric, d)
+        err = (out - ref).abs()
+        ok = bool((err <= atol + rtol * ref.abs()).all())
+        ms = cuda_ms(torch, lambda: ops.cost_matrix_batched(x, y, metric),
+                     reps=20)
+        plain_ms = cuda_ms(torch, lambda: cost_matrix_ref(x, y, metric),
+                           reps=3, warmup=1)
+        p = {"euclidean": 2.0, "l1": 1.0}.get(metric)
+        library_ms = None if p is None else cuda_ms(
+            torch, lambda: torch.cdist(x, y, p=p), reps=5, warmup=1)
+        nbytes = 4 * b * (m * d + n * d + m * n)
+        nflop = 2 * b * m * n * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflop / FP32_FLOP_PER_S
+        row = {"name": "cost_matrix", "metric": metric,
+               "shape": [b, m, n, d], "ok": ok, "rtol": rtol, "atol": atol,
+               "max_abs_err": float(err.max()),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"[2] {json.dumps(row)}")
+        rows.append(row)
+        ok_all &= ok
+        if metric == "euclidean" and b == 1:
+            kernel_rows["cost_matrix"] = row
+        del x, y, out, ref, err
+        torch.cuda.empty_cache()
+    return ok_all
+
+
+def _points(rng, n):
+    return rng.uniform(size=(n, 2)).astype(np.float32)
+
+
+def phase_assignment(torch, rng, dev, record) -> bool:
+    """The default policy, then ``guaranteed=True`` on the same costs.
+
+    Certificates: with the default policy the run's eps bounds the gap by
+    2 eps m max(c) (matched edges are tight in units of eps, so rounding
+    adds < 1 unit per edge, and the <= eps m rows left free are completed
+    at cost <= max(c) each, while the duals of free rows are >= 0); only
+    ``guaranteed=True`` (eps/3 inside) brings it under eps m max(c), the
+    ``additive_gap_bound``."""
+    from repro_torch.core.api import ASSIGNMENT, DispatchPolicy, solve
+    from repro_torch.core.costs import build_cost_matrix
+
+    n, eps = SIZES["assignment"]
+    c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
+                          device=dev)
+    ok = True
+    for guaranteed in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        # the pre-batched form: a ragged list would pad n = 10 000 to the
+        # ceil-pow2 bucket 16 384
+        sol = solve(ASSIGNMENT, {"c": c[None]}, eps,
+                    DispatchPolicy(guaranteed=guaranteed),
+                    want=("cost", "duals", "matching"), device=dev)[0]
+        cost = sol.cost
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        gap, bound = sol.additive_gap(), sol.additive_gap_bound()
+        feas = sol.dual_feasible()
+        perm = bool(np.array_equal(np.sort(sol.matching()), np.arange(n)))
+        limit = bound if guaranteed else 2 * bound
+        res = {"n": n, "eps": eps, "guaranteed": guaranteed, "cost": cost,
+               "phases": sol.phases, "rounds": sol.rounds,
+               "additive_gap": gap, "additive_gap_bound": bound,
+               "gap_limit": limit, "dual_feasible": feas,
+               "perfect_matching": perm, "wall_s": wall,
+               "dispatches": sol.stats.dispatches}
+        log(f"[3] assignment {json.dumps(res, default=float)}")
+        record["phases"].setdefault("assignment", []).append(res)
+        ok &= bool(gap <= limit and feas and perm and np.isfinite(cost))
+    return ok
+
+
+def phase_ot(torch, rng, dev, record) -> bool:
+    from repro_torch.core.api import OT, DispatchPolicy, solve
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.exact import exact_ot_cost
+
+    ok = True
+    for n, eps, exact in SIZES["ot"]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
+                              device=dev)
+        nu = rng.dirichlet(np.ones(n)).astype(np.float32)
+        mu = rng.dirichlet(np.ones(n)).astype(np.float32)
+        policy = DispatchPolicy(guaranteed=exact)
+        sol = solve(OT, [(c, nu, mu)], eps, policy,
+                    want=("cost", "duals", "plan_sparse"), device=dev)[0]
+        cost = sol.cost
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        gap, bound = sol.additive_gap(), sol.additive_gap_bound()
+        feas = sol.dual_feasible()
+        plan = sol.plan_sparse()
+        rows = np.zeros(n)
+        np.add.at(rows, plan.rows, plan.vals)
+        marg = float(np.abs(rows - nu).max())
+        res = {"n": n, "eps": eps, "guaranteed": exact, "cost": cost,
+               "phases": sol.phases, "rounds": sol.rounds,
+               "additive_gap": gap, "additive_gap_bound": bound,
+               "dual_feasible": feas, "plan_nnz": plan.nnz,
+               "row_marginal_err": marg, "wall_s": wall}
+        ok &= bool(gap <= bound and feas and np.isfinite(cost)
+                   and marg < 1e-5)
+        if exact:
+            t1 = time.monotonic()
+            opt = exact_ot_cost(c.cpu().numpy(), nu, mu)
+            res.update(exact_cost=opt, exact_s=time.monotonic() - t1)
+            # guaranteed: cost <= OPT + eps * mass * max(c)
+            ok &= bool(opt - 1e-6 <= cost <= opt + bound + 1e-6)
+        log(f"[4] ot {json.dumps(res, default=float)}")
+        record["phases"].setdefault("ot", []).append(res)
+    return ok
+
+
+def phase_card_vs_cpu(torch, rng, dev, record) -> bool:
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.exact import exact_assignment_cost
+
+    ok = True
+    sizes = SIZES["card_vs_cpu"]
+    costs = [build_cost_matrix(_points(rng, n), _points(rng, n),
+                               "euclidean", device=dev) for n in sizes]
+    host = [c.cpu() for c in costs]   # the same float matrices on both
+    policy = DispatchPolicy(mode="compact")
+    for name, spec, eps, insts_dev, insts_cpu in [
+        ("assignment", ASSIGNMENT, 0.05, costs, host),
+        ("ot", OT, 0.1, None, None),
+    ]:
+        if name == "ot":
+            masses = [(rng.dirichlet(np.ones(n)).astype(np.float32),
+                       rng.dirichlet(np.ones(n)).astype(np.float32))
+                      for n in sizes]
+            insts_dev = [(c, nu, mu) for c, (nu, mu) in zip(costs, masses)]
+            insts_cpu = [(c, nu, mu) for c, (nu, mu) in zip(host, masses)]
+        want = ("cost", "state")
+        t0 = time.monotonic()
+        on_card = solve(spec, insts_dev, eps, policy, want=want,
+                        device=dev)
+        t1 = time.monotonic()
+        on_cpu = solve(spec, insts_cpu, eps, policy, want=want,
+                       device="cpu")
+        t2 = time.monotonic()
+        fields_ok = True
+        for a, b in zip(on_card, on_cpu):
+            sa, sb = a.state(), b.state()
+            for f in sa._fields:
+                if not torch.equal(getattr(sa, f).cpu(), getattr(sb, f)):
+                    log(f"[5] {name} n={a.shape} field {f} differs")
+                    fields_ok = False
+        res = {"problem": name, "eps": eps, "sizes": sizes,
+               "state_equal": fields_ok, "card_s": t1 - t0,
+               "cpu_s": t2 - t1,
+               "phases": [s.phases for s in on_card]}
+        log(f"[5] {json.dumps(res)}")
+        record["phases"].setdefault("card_vs_cpu", []).append(res)
+        ok &= fields_ok
+
+    n, eps = SIZES["assignment_exact"]
+    c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
+                          device=dev)
+    sol = solve(ASSIGNMENT, [c], eps, DispatchPolicy(guaranteed=True),
+                want=("cost", "duals"), device=dev)[0]
+    opt = exact_assignment_cost(c.cpu().numpy())
+    res = {"n": n, "eps": eps, "guaranteed": True, "cost": sol.cost,
+           "exact_cost": opt, "additive_gap_bound": sol.additive_gap_bound()}
+    log(f"[5] exact {json.dumps(res, default=float)}")
+    record["phases"]["assignment_exact"] = res
+    # guaranteed: cost <= OPT + eps * m * max(c)
+    ok &= bool(opt - 1e-3 <= sol.cost <= opt + sol.additive_gap_bound())
+    return ok
+
+
+if __name__ == "__main__":
+    sys.exit(main())

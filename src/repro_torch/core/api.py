@@ -1,0 +1,265 @@
+"""The ``solve()`` front door: one entry point for every dispatch path.
+
+Port of ``repro.core.api``. ``solve(spec, instances, eps, policy)`` routes
+a ragged list of instances or one pre-batched bucket through the driver
+the :class:`DispatchPolicy` selects:
+
+  * ``lockstep``  every lane of a bucket runs until it terminates, in one
+                  chunk;
+  * ``compact``   the convergence-compacting chunked-phase driver
+                  (``core/compaction.py``), per-instance eps supported.
+
+Results are identical across the two, lane for lane. It runs on the CUDA
+device unless ``device="cpu"`` is passed; on the card every propose round
+launches the ``slack_propose`` kernel.
+
+``want=`` (artifact names, also settable on the policy) returns the typed
+Solution surface (``core/solution.py``): a ``SolutionBatch`` for the dict
+form, a list of per-instance ``Solution`` views for the ragged form. With
+``want=None`` the legacy surfaces come back: ``(result, stats)`` for the
+dict form, per-instance dicts for the ragged form.
+
+Paths of the reference this slice of the port does not have yet raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them:
+``mode="mesh"``, ``fused=True``, ``solver != "pushrelabel"`` and
+``validate=True``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
+from .device import resolve_device
+from .problem import ASSIGNMENT, OT  # noqa: F401  (re-exported with solve)
+from . import solution as solution_mod
+from .solution import Solution, SolutionBatch, SolveStats
+
+_now = time.monotonic
+
+_MODES = ("auto", "lockstep", "compact", "mesh")
+_SOLVERS = ("pushrelabel", "sinkhorn", "hybrid", "auto")
+
+
+@dataclass(frozen=True)
+class DispatchPolicy:
+    """How a batch is dispatched. The fields are the reference's.
+
+    Args:
+      mode: "auto" (compact), "lockstep" or "compact"; "mesh" is not
+        ported yet.
+      mesh, placement: multi-device dispatch, not ported yet (``mesh``
+        must stay None).
+      chunk: k, phases per chunk of the compacting driver.
+      buckets: shape-bucket boundaries for ragged input (None -> the
+        ``core/batched.py`` defaults).
+      guaranteed: run at eps/3 for the paper's <= OPT + eps*m bound.
+      want: artifacts of the typed Solution surface; None keeps the
+        legacy return surface. ``solve(..., want=...)`` overrides it.
+      validate, fused, solver: not ported yet; only the defaults
+        (False, False, "pushrelabel") are accepted.
+    """
+    mode: str = "auto"
+    mesh: Any = None
+    placement: str = "auto"
+    chunk: Optional[int] = None
+    buckets: Optional[Tuple[int, ...]] = None
+    guaranteed: bool = False
+    want: Optional[Tuple[str, ...]] = None
+    validate: bool = False
+    fused: bool = False
+    solver: str = "pushrelabel"
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(f"unknown dispatch mode {self.mode!r}; "
+                             f"expected one of {_MODES}")
+        if self.solver not in _SOLVERS:
+            raise ValueError(f"unknown solver {self.solver!r}; "
+                             f"expected one of {_SOLVERS}")
+        if self.mode == "lockstep" and self.mesh is not None:
+            raise ValueError("mode='lockstep' cannot dispatch over a mesh")
+        if self.mode == "mesh" or self.mesh is not None:
+            raise NotImplementedError(
+                "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
+                "11, multi-device)")
+        if self.fused:
+            raise NotImplementedError(
+                "fused=True is not ported yet (ROADMAP.md Queue 1 item 6, "
+                "fused route, with Queue 2 items 4-5)")
+        if self.solver != "pushrelabel":
+            raise NotImplementedError(
+                f"solver={self.solver!r} is not ported yet (ROADMAP.md "
+                "Queue 1 item 8, portfolio)")
+        if self.validate:
+            raise NotImplementedError(
+                "validate=True is not ported yet (ROADMAP.md Queue 1 item "
+                "7, admission checks)")
+
+    def resolved_mode(self) -> str:
+        return "compact" if self.mode == "auto" else self.mode
+
+
+def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
+             policy: Optional[DispatchPolicy] = None,
+             keep_state: bool = False, obs=None, device=None, **prep_kw):
+    """Solve ONE pre-batched bucket (dict of (B, ...) operands) under
+    ``policy`` on ``device`` (default CUDA). Returns ``(result, stats)``:
+    ``stats`` is None for plain lockstep, a CompactionStats for compact
+    (and for lockstep with ``keep_state``), with the dispatch wall time
+    as ``solve_s``."""
+    policy = policy or DispatchPolicy()
+    dev = resolve_device(device)
+    inputs = spec.canonicalize(inputs, dev)
+    t0 = _now()
+    r, stats = _dispatch_one(spec, inputs, eps, sizes=sizes, policy=policy,
+                             keep_state=keep_state, obs=obs, device=dev,
+                             **prep_kw)
+    if stats is not None:
+        stats.solve_s = _now() - t0
+    return r, stats
+
+
+def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
+                  policy: DispatchPolicy, keep_state: bool = False,
+                  obs=None, device=None, **prep_kw):
+    mode = policy.resolved_mode()
+    if mode == "lockstep":
+        eps_u = np.unique(np.asarray(eps, np.float64))
+        if eps_u.size > 1:
+            raise ValueError("per-instance eps requires compact=True")
+        r, state = spec.solve_lockstep(
+            inputs, float(eps_u[0]), sizes=sizes,
+            guaranteed=policy.guaranteed, keep_state=keep_state,
+            device=device, **prep_kw)
+        if keep_state:
+            b = int(spec.batch_shape(inputs)[0])
+            st = CompactionStats(batch=b, dispatched_batch=b, chunk=0,
+                                 dispatches=1, final_state=state)
+            return r, st
+        return r, None
+    k = DEFAULT_CHUNK if policy.chunk is None else int(policy.chunk)
+    return solve_compacting(
+        spec, inputs, eps, sizes=sizes, k=k, guaranteed=policy.guaranteed,
+        keep_state=keep_state, obs=obs, device=device, **prep_kw)
+
+
+def _wrap_solution(spec, inputs: Dict[str, Any], eps, policy: DispatchPolicy,
+                   r, stats, *, sizes, want: Optional[Tuple[str, ...]],
+                   bucket: Optional[Tuple[int, int]] = None
+                   ) -> SolutionBatch:
+    """Wrap one dispatched bucket in a SolutionBatch; the tensors stay on
+    the device until an artifact is fetched."""
+    b = int(spec.batch_shape(inputs)[0])
+    eps_user = np.broadcast_to(np.asarray(eps, np.float64), (b,)).copy()
+    eps_internal = eps_user / 3.0 if policy.guaranteed else eps_user
+    sstats = SolveStats.from_driver(stats, mode=policy.resolved_mode(),
+                                    batch=b, bucket=bucket)
+    state = getattr(stats, "final_state", None) if stats is not None else None
+    return SolutionBatch(
+        spec, r, stats=sstats, driver_stats=stats, inputs=inputs,
+        sizes=sizes, eps=eps_user, eps_internal=eps_internal,
+        guaranteed=policy.guaranteed, want=want, state=state)
+
+
+def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
+          policy: Optional[DispatchPolicy] = None, *, sizes=None,
+          keep_state: bool = False, want: Optional[Sequence[str]] = None,
+          obs=None, device=None, **prep_kw
+          ) -> Union[SolutionBatch, List[Solution], Tuple[Any, Any],
+                     List[dict]]:
+    """The front door. Two input forms:
+
+    * a DICT of pre-batched (B, ...) operands (``{"c"}`` for
+      ``ASSIGNMENT``, ``{"c", "nu", "mu"}`` for ``OT``; ``sizes`` gives
+      the true shapes inside the padding): one bucket is dispatched.
+      Returns a :class:`SolutionBatch` when ``want`` is declared, else
+      ``(result, stats)``.
+    * a ragged LIST (cost matrices for ``ASSIGNMENT``, ``(c, nu, mu)``
+      triples for ``OT``): instances are grouped into shape buckets,
+      padded and dispatched per bucket. Returns per-instance
+      :class:`Solution` views (input order) when ``want`` is declared,
+      else per-instance dicts. ``eps`` may be per instance; lockstep
+      sub-groups each bucket by eps value.
+
+    ``want`` declares the artifacts (``spec.artifacts``); asking for
+    ``state`` (or ``keep_state=True``) retains the pre-completion integer
+    state. ``obs`` is any object with ``event(name, **fields)``.
+    ``device`` defaults to CUDA; inputs may be numpy arrays or tensors and
+    are moved there.
+    """
+    policy = policy or DispatchPolicy()
+    dev = resolve_device(device)
+    if want is None:
+        want = policy.want
+    if want is not None:
+        want = tuple(want)
+        unknown = [w for w in want if w not in spec.artifacts]
+        if unknown:
+            raise ValueError(f"unknown artifact(s) {unknown} for spec "
+                             f"{spec.name!r}; available: {spec.artifacts}")
+        if keep_state and "state" not in want:
+            want = want + ("state",)
+        keep_state = keep_state or "state" in want
+    if isinstance(instances, dict):
+        inputs = spec.canonicalize(instances, dev)
+        r, stats = dispatch(spec, inputs, eps, sizes=sizes, policy=policy,
+                            keep_state=keep_state, obs=obs, device=dev,
+                            **prep_kw)
+        if want is None:
+            return r, stats
+        return _wrap_solution(spec, inputs, eps, policy, r, stats,
+                              sizes=sizes, want=want)
+    sols = _solve_ragged(spec, list(instances), eps, policy,
+                         keep_state=keep_state, want=want, obs=obs,
+                         device=dev, **prep_kw)
+    if want is not None:
+        return sols
+    out = []
+    for s in sols:
+        d = s.legacy_dict()
+        if keep_state:
+            d["state"] = s.state()
+        out.append(d)
+    return out
+
+
+def _solve_ragged(spec, instances: list, eps, policy: DispatchPolicy, *,
+                  keep_state: bool = False,
+                  want: Optional[Tuple[str, ...]] = None, obs=None,
+                  device=None, **prep_kw) -> List[Solution]:
+    from .batched import DEFAULT_BUCKETS, bucket_instances
+
+    shapes = [spec.instance_shape(x) for x in instances]
+    eps_arr = np.broadcast_to(np.asarray(eps, np.float64),
+                              (len(instances),))
+    buckets = (DEFAULT_BUCKETS if policy.buckets is None
+               else tuple(policy.buckets))
+    lockstep = policy.resolved_mode() == "lockstep"
+    results: List[Optional[Solution]] = [None] * len(instances)
+    for grp in bucket_instances(shapes, buckets):
+        if lockstep:
+            # lockstep runs one eps per bucket: sub-group by eps value
+            by_eps: Dict[float, List[int]] = {}
+            for i in grp.indices:
+                by_eps.setdefault(float(eps_arr[i]), []).append(i)
+            subgroups = [by_eps[e] for e in sorted(by_eps)]
+        else:
+            subgroups = [grp.indices]
+        for idx in subgroups:
+            inputs = spec.canonicalize(
+                spec.pad_group([instances[i] for i in idx], grp.key), device)
+            sz = np.asarray([shapes[i] for i in idx], np.int32)
+            r, stats = dispatch(spec, inputs, eps_arr[idx], sizes=sz,
+                                policy=policy, keep_state=keep_state,
+                                obs=obs, device=device, **prep_kw)
+            batch = _wrap_solution(spec, inputs, eps_arr[idx], policy, r,
+                                   stats, sizes=sz, want=want,
+                                   bucket=grp.key)
+            # per-instance views share the batch's tensors and fetch cache
+            for j, i in enumerate(idx):
+                results[i] = batch[j]
+    return results

@@ -1,0 +1,212 @@
+"""Wrappers of the hand-written CUDA kernels: build, load, check, launch.
+
+Each wrapper takes tensors on one device. On a CPU tensor it runs the
+kernel's plain PyTorch version (in the kernel's own module). On a CUDA
+tensor it launches the kernel on ``torch.cuda.current_stream()`` or
+raises: there is no fallback from the card to the plain version.
+
+The kernels are built at first use from ``csrc/*.cu`` with ``nvcc`` into
+``build/repro_torch/`` at the root of the checkout (one ``nvcc`` process
+per source, all started together) and loaded with ``ctypes``; a shared
+library is named by the hash of its source, so an edited source is
+rebuilt. ``launches`` counts, per kernel, the launches made through these
+wrappers, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from . import cost_matrix as _cm
+from . import slack_propose as _sp
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# kernel name -> (C entry point, argtypes)
+_ENTRY = {
+    "slack_propose": ("slack_propose_launch",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "cost_matrix": ("cost_matrix_launch", [_P, _P, _P, _I, _I, _I, _I, _I,
+                                           _P]),
+}
+_METRIC_ID = {"sqeuclidean": 0, "euclidean": 1, "l1": 2}
+
+launches = {name: 0 for name in _ENTRY}
+build_log: dict = {}
+_libs: dict = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("repro_torch: nvcc not found (CUDA_HOME, PATH, "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be "
+                       "built")
+
+
+def build_kernels() -> float:
+    """Build (if needed) and load every kernel; returns the seconds spent.
+    Raises if a source fails to compile or load."""
+    if len(_libs) == len(_ENTRY):
+        return 0.0
+    t0 = time.monotonic()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {}
+    for name in _ENTRY:
+        src = _CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        todo[name] = (src, BUILD_DIR / f"lib{name}-{digest}.so")
+    nvcc = None
+    procs = {}
+    try:
+        for name, (src, so) in todo.items():
+            if so.exists():
+                continue
+            nvcc = nvcc or _nvcc()
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, so)
+        failed = []
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("repro_torch: nvcc failed for "
+                               + "\n".join(failed))
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (_, so) in todo.items():
+        lib = ctypes.CDLL(str(so))
+        fn_name, argtypes = _ENTRY[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return time.monotonic() - t0
+
+
+def _launch(name: str, *args) -> None:
+    build_kernels()
+    err = _libs[name](*args)
+    if err != 0:
+        raise RuntimeError(f"repro_torch: {name} kernel launch failed "
+                           f"(cudaError {err})")
+    launches[name] += 1
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"repro_torch kernels run on cuda or cpu tensors, "
+                         f"got {t.device}")
+    return True
+
+
+def slack_propose_batched(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
+    """Batched propose step: (B, m, n) int32 costs, (B, m) / (B, n) int32
+    duals, (B, n) bool availability, (B,) int32 per-lane salt, optional
+    (B, m) bool active rows. Returns ``(col (B, m) int32 (-1 = none),
+    key (B, m) int64)``; see ``kernels/slack_propose.py``."""
+    b, m, n = c_int.shape
+    dev = c_int.device
+    if active_b is None:
+        active_b = torch.ones((b, m), dtype=torch.bool, device=dev)
+    if not _on_cuda(c_int):
+        return _sp.slack_propose_ref(c_int, y_b, y_a, avail_a, salt,
+                                     active_b)
+    _check("c_int", c_int, torch.int32, (b, m, n), dev)
+    _check("y_b", y_b, torch.int32, (b, m), dev)
+    _check("y_a", y_a, torch.int32, (b, n), dev)
+    _check("avail_a", avail_a, torch.bool, (b, n), dev)
+    _check("active_b", active_b, torch.bool, (b, m), dev)
+    _check("salt", salt, torch.int32, (b,), dev)
+    col = torch.empty((b, m), dtype=torch.int32, device=dev)
+    key = torch.empty((b, m), dtype=torch.int64, device=dev)
+    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (c_int, y_a, avail_a)))
+    _launch("slack_propose", c_int.data_ptr(), y_b.data_ptr(),
+            y_a.data_ptr(), avail_a.data_ptr(), active_b.data_ptr(),
+            salt.data_ptr(), col.data_ptr(), key.data_ptr(), b, m, n, vec,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return col, key
+
+
+def slack_propose(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
+    """Unbatched form: (m, n), (m,), (n,), (n,), scalar salt -> (m,), (m,).
+    The same kernel with B = 1."""
+    dev = c_int.device
+    salt_t = torch.as_tensor(salt, dtype=torch.int32, device=dev).reshape(1)
+    col, key = slack_propose_batched(
+        c_int[None], y_b[None], y_a[None], avail_a[None], salt_t,
+        active_b=None if active_b is None else active_b[None])
+    return col[0], key[0]
+
+
+def cost_matrix_batched(x, y, metric: str = "sqeuclidean"):
+    """(B, m, d) x (B, n, d) float32 -> (B, m, n) float32 in one launch."""
+    if metric not in _METRIC_ID:
+        raise ValueError(f"unknown metric {metric!r}; expected one of "
+                         f"{tuple(_METRIC_ID)}")
+    b, m, d = x.shape
+    if y.shape[0] != b or y.shape[2] != d:
+        raise ValueError(f"cost_matrix: x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)} disagree on batch or features")
+    n = y.shape[1]
+    if not _on_cuda(x):
+        return _cm.cost_matrix_ref(x, y, metric)
+    dev = x.device
+    _check("x", x, torch.float32, (b, m, d), dev)
+    _check("y", y, torch.float32, (b, n, d), dev)
+    out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
+    _launch("cost_matrix", x.data_ptr(), y.data_ptr(), out.data_ptr(), b, m,
+            n, d, _METRIC_ID[metric],
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def cost_matrix(x, y, metric: str = "sqeuclidean"):
+    """Unbatched form: (m, d) x (n, d) -> (m, n); the kernel with B = 1."""
+    return cost_matrix_batched(x[None], y[None], metric)[0]

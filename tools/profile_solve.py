@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time of one ``solve`` goes on the card (PyTorch profiler).
+
+    python3 tools/profile_solve.py [--seed 0] [--out build/profile.json]
+
+Solves the Fig. 1 assignment (n = 10 000 points, eps = 0.01) and the
+n = 4096 OT instance of ``chip_smoke.py`` once to warm up, then once more
+under ``torch.profiler``, and reports for each: wall time (with the
+profiler on, which slows the host side), the summed device time of every
+kernel, their share of that wall time (the card's busy share; the rest is
+idle), the top kernels by device time, the host syncs and the launches of
+the port's own kernels. Needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile_case(torch, name, run):
+    from repro_torch.core import device as rdev
+    from repro_torch.kernels import ops
+
+    run()                                   # warm-up (kernel build, caches)
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        info = run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    # kernels only: an aten op also reports the device time of the
+    # kernels it launched, which would count them twice
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == cuda]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    busy_s = sum(r[2] for r in rows) / 1e6
+    out = {"case": name, **info, "wall_s": wall, "device_busy_s": busy_s,
+           "busy_share": busy_s / wall if wall > 0 else None,
+           "syncs": dict(rdev.sync_counts), "launches": dict(ops.launches),
+           "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                   for k, c, us in rows[:12]]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/profile.json")
+    args = ap.parse_args()
+    root = Path(__file__).resolve().parents[1]
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_solve: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.core.api import ASSIGNMENT, OT, solve
+    from repro_torch.core.costs import build_cost_matrix
+
+    rng = np.random.default_rng(args.seed)
+    dev = torch.device("cuda")
+
+    def pts(n):
+        return rng.uniform(size=(n, 2)).astype(np.float32)
+
+    c_a = build_cost_matrix(pts(10_000), pts(10_000), "euclidean", device=dev)
+    c_o = build_cost_matrix(pts(4096), pts(4096), "euclidean", device=dev)
+    nu = rng.dirichlet(np.ones(4096)).astype(np.float32)
+    mu = rng.dirichlet(np.ones(4096)).astype(np.float32)
+
+    def assignment():
+        s = solve(ASSIGNMENT, {"c": c_a[None]}, 0.01, want=("cost",),
+                  device=dev)[0]
+        return {"phases": s.phases, "rounds": s.rounds}
+
+    def ot():
+        s = solve(OT, [(c_o, nu, mu)], 0.05, want=("cost",), device=dev)[0]
+        return {"phases": s.phases, "rounds": s.rounds}
+
+    smi = __import__("subprocess").run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(smi, flush=True)
+    res = {"card": smi, "torch": torch.__version__, "cases": [
+        profile_case(torch, "assignment n=10000 eps=0.01", assignment),
+        profile_case(torch, "ot n=4096 eps=0.05", ot)]}
+    out = root / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
