@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero:
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: ``slack_propose`` equal bit for bit,
      ``cost_matrix`` within the stated tolerance; CUDA-event times of
-     kernel, plain version and library call beside the bound;
+     kernel, plain version and library call beside the bound. The fused
+     kernels (``fused_assignment_phases`` at B = 16, 1024 x 1024;
+     ``fused_ot_phases`` at B = 8, 512 x 512) run one k = 8 chunk from a
+     state a few stepped phases in, every integer field equal to the
+     plain version's and to the stepped core's; times of the chunk
+     launch, the plain version and the stepped ``run_*_phases``;
   3. ``solve(ASSIGNMENT)`` at the paper's size (Fig. 1: n = 10 000 points
      in the unit square, euclidean, eps = 0.01) under the default policy
      and under ``guaranteed=True``, with their certificates and the
@@ -20,8 +25,18 @@ Phases, in order; any failure exits non-zero:
   5. card against CPU on a ragged batch of 8 instances (n = 128 .. 512)
      for both problems: integer state equal field by field; the n = 2048
      assignment cost against ``linear_sum_assignment``;
-  6. one JSON line with every kernel's numbers;
-  7. last line: ``{"ok": true, "device": {...}}``.
+  6. the fused route, ``DispatchPolicy(fused=True)``: the solves of
+     phases 3 and 4 again, on the same inputs, with the same integer
+     state and certificates, one fused launch per chunk dispatch, no
+     ``slack_propose`` launch and no round flag read; the ragged batch of
+     phase 5 in lockstep and compact mode against the CPU's stepped
+     state;
+  7. one JSON line with every kernel's numbers;
+  8. last line: ``{"ok": true, "device": {...}}``.
+
+Phases 3-4 (the stepped route) and each part of phase 6 (the fused
+route) are driven with the launch counts set to 0 just before and read
+just after; the kernels line gives each kernel's launches on its route.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -57,6 +72,10 @@ SIZES = {
     "ot": [(4096, 0.05, False), (512, 0.05, True)],     # (n, eps, exact)
     "card_vs_cpu": [128, 160, 200, 256, 300, 384, 450, 512],
     "assignment_exact": (2048, 0.05),                   # (n, eps)
+    # fused kernels, phase 2: (B, n, eps, stepped phases before the chunk)
+    "fused_assignment": (16, 1024, 0.01, 3),
+    "fused_ot": (8, 512, 0.02, 2),
+    "fused_k": 8,
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -69,7 +88,19 @@ KERNELS = {
         "src/repro_torch/csrc/cost_matrix.cu",
         "src/repro/kernels/cost_matrix.py:76 (cost_matrix; "
         "cost_matrix_batched at :117)"),
+    "fused_assignment_phases": (
+        "src/repro_torch/csrc/fused_assignment.cu",
+        "src/repro/kernels/fused_phase.py:181 (fused_assignment_phases; "
+        "_assignment_kernel at :87)"),
+    "fused_ot_phases": (
+        "src/repro_torch/csrc/fused_ot.cu",
+        "src/repro/kernels/fused_phase.py:334 (fused_ot_phases; "
+        "_ot_kernel at :230)"),
 }
+# the route whose launches the kernels line gives for each kernel
+ROUTE = {"slack_propose": "stepped", "cost_matrix": "stepped",
+         "fused_assignment_phases": "fused_assignment",
+         "fused_ot_phases": "fused_ot"}
 
 
 def log(*a):
@@ -149,13 +180,19 @@ def main() -> int:
     record["phases"]["kernels"] = rows = []
     if not phase_kernels(torch, ops, rng, dev, rows, kernel_rows):
         return fail("a kernel disagreed with its plain version")
+    # its own generator, so phases 3-5 draw the inputs they always drew
+    if not phase_fused_kernels(torch, ops, np.random.default_rng(
+            [args.seed, 2]), dev, rows, kernel_rows):
+        return fail("a fused kernel disagreed with its plain version")
     log(f"[2] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 3-5: the main path, counted ----------------------------------
+    # -- 3-5: the stepped route, counted --------------------------------
+    ctx = {}
+    launches = {}
     ops.reset_launches()
     rdev.reset_sync_counts()
-    ok = phase_assignment(torch, rng, dev, record)
-    main_launches = dict(ops.launches)
+    ok = phase_assignment(torch, rng, dev, record, ctx)
+    launches["stepped"] = main_launches = dict(ops.launches)
     log(f"[3] launches {main_launches}, syncs {dict(rdev.sync_counts)}; "
         f"done at {time.monotonic() - t_start:.0f} s")
     if not ok:
@@ -166,7 +203,7 @@ def main() -> int:
 
     ops.reset_launches()
     rdev.reset_sync_counts()
-    ok = phase_ot(torch, rng, dev, record)
+    ok = phase_ot(torch, rng, dev, record, ctx)
     ot_launches = dict(ops.launches)
     log(f"[4] launches {ot_launches}, syncs {dict(rdev.sync_counts)}; "
         f"done at {time.monotonic() - t_start:.0f} s")
@@ -175,29 +212,36 @@ def main() -> int:
     if ot_launches["slack_propose"] == 0:
         return fail("the OT path never launched slack_propose")
 
-    if not phase_card_vs_cpu(torch, rng, dev, record):
+    if not phase_card_vs_cpu(torch, rng, dev, record, ctx):
         return fail("card against CPU")
     log(f"[5] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 6. kernels line ------------------------------------------------
+    # -- 6. the fused route, counted --------------------------------------
+    if not phase_fused(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the fused route")
+    log(f"[6] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 7. kernels line ------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces, "launches": launches[ROUTE[name]][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "ok": row["ok"], "shape": row["shape"]})
+            "ok": row["ok"], "shape": row["shape"],
+            **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
+               else {})})
     record["kernels"] = kernels
-    record["main_launches"] = main_launches
+    record["launches"] = launches
     record["ot_launches"] = ot_launches
     record["wall_s"] = time.monotonic() - t_start
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[6] record written to {args.out}")
+    log(f"[7] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -297,7 +341,23 @@ def _points(rng, n):
     return rng.uniform(size=(n, 2)).astype(np.float32)
 
 
-def phase_assignment(torch, rng, dev, record) -> bool:
+def _assignment_certificates(sol, n, guaranteed):
+    """Gap, bound, dual feasibility and permutation of one Fig. 1 solve;
+    see ``phase_assignment``."""
+    gap, bound = sol.additive_gap(), sol.additive_gap_bound()
+    limit = bound if guaranteed else 2 * bound
+    res = {"cost": sol.cost, "phases": sol.phases, "rounds": sol.rounds,
+           "additive_gap": gap, "additive_gap_bound": bound,
+           "gap_limit": limit, "dual_feasible": sol.dual_feasible(),
+           "perfect_matching": bool(np.array_equal(np.sort(sol.matching()),
+                                                   np.arange(n))),
+           "dispatches": sol.stats.dispatches}
+    ok = bool(gap <= limit and res["dual_feasible"]
+              and res["perfect_matching"] and np.isfinite(sol.cost))
+    return ok, res
+
+
+def phase_assignment(torch, rng, dev, record, ctx) -> bool:
     """The default policy, then ``guaranteed=True`` on the same costs.
 
     Certificates: with the default policy the run's eps bounds the gap by
@@ -305,13 +365,16 @@ def phase_assignment(torch, rng, dev, record) -> bool:
     adds < 1 unit per edge, and the <= eps m rows left free are completed
     at cost <= max(c) each, while the duals of free rows are >= 0); only
     ``guaranteed=True`` (eps/3 inside) brings it under eps m max(c), the
-    ``additive_gap_bound``."""
+    ``additive_gap_bound``. The costs and each solve's integer state are
+    kept in ``ctx`` for the fused route (phase 6)."""
     from repro_torch.core.api import ASSIGNMENT, DispatchPolicy, solve
     from repro_torch.core.costs import build_cost_matrix
 
     n, eps = SIZES["assignment"]
     c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
                           device=dev)
+    ctx["assignment_c"] = c
+    ctx["assignment"] = []
     ok = True
     for guaranteed in (False, True):
         torch.cuda.synchronize()
@@ -320,32 +383,45 @@ def phase_assignment(torch, rng, dev, record) -> bool:
         # ceil-pow2 bucket 16 384
         sol = solve(ASSIGNMENT, {"c": c[None]}, eps,
                     DispatchPolicy(guaranteed=guaranteed),
-                    want=("cost", "duals", "matching"), device=dev)[0]
-        cost = sol.cost
+                    want=("cost", "duals", "matching", "state"),
+                    device=dev)[0]
+        sol.cost
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        gap, bound = sol.additive_gap(), sol.additive_gap_bound()
-        feas = sol.dual_feasible()
-        perm = bool(np.array_equal(np.sort(sol.matching()), np.arange(n)))
-        limit = bound if guaranteed else 2 * bound
-        res = {"n": n, "eps": eps, "guaranteed": guaranteed, "cost": cost,
-               "phases": sol.phases, "rounds": sol.rounds,
-               "additive_gap": gap, "additive_gap_bound": bound,
-               "gap_limit": limit, "dual_feasible": feas,
-               "perfect_matching": perm, "wall_s": wall,
-               "dispatches": sol.stats.dispatches}
+        cert_ok, cert = _assignment_certificates(sol, n, guaranteed)
+        res = {"n": n, "eps": eps, "guaranteed": guaranteed, **cert,
+               "wall_s": wall}
         log(f"[3] assignment {json.dumps(res, default=float)}")
         record["phases"].setdefault("assignment", []).append(res)
-        ok &= bool(gap <= limit and feas and perm and np.isfinite(cost))
+        ctx["assignment"].append((guaranteed, sol.state(), wall))
+        ok &= cert_ok
     return ok
 
 
-def phase_ot(torch, rng, dev, record) -> bool:
+def _ot_certificates(sol, n, nu):
+    gap, bound = sol.additive_gap(), sol.additive_gap_bound()
+    plan = sol.plan_sparse()
+    rows = np.zeros(n)
+    np.add.at(rows, plan.rows, plan.vals)
+    res = {"cost": sol.cost, "phases": sol.phases, "rounds": sol.rounds,
+           "additive_gap": gap, "additive_gap_bound": bound,
+           "dual_feasible": sol.dual_feasible(), "plan_nnz": plan.nnz,
+           "row_marginal_err": float(np.abs(rows - nu).max()),
+           "dispatches": sol.stats.dispatches}
+    ok = bool(gap <= bound and res["dual_feasible"] and np.isfinite(sol.cost)
+              and res["row_marginal_err"] < 1e-5)
+    return ok, res
+
+
+def phase_ot(torch, rng, dev, record, ctx) -> bool:
+    """The OT cells; inputs and integer states are kept in ``ctx`` for
+    the fused route (phase 6)."""
     from repro_torch.core.api import OT, DispatchPolicy, solve
     from repro_torch.core.costs import build_cost_matrix
     from repro_torch.core.exact import exact_ot_cost
 
     ok = True
+    ctx["ot"] = []
     for n, eps, exact in SIZES["ot"]:
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -355,35 +431,39 @@ def phase_ot(torch, rng, dev, record) -> bool:
         mu = rng.dirichlet(np.ones(n)).astype(np.float32)
         policy = DispatchPolicy(guaranteed=exact)
         sol = solve(OT, [(c, nu, mu)], eps, policy,
-                    want=("cost", "duals", "plan_sparse"), device=dev)[0]
-        cost = sol.cost
+                    want=("cost", "duals", "plan_sparse", "state"),
+                    device=dev)[0]
+        sol.cost
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        gap, bound = sol.additive_gap(), sol.additive_gap_bound()
-        feas = sol.dual_feasible()
-        plan = sol.plan_sparse()
-        rows = np.zeros(n)
-        np.add.at(rows, plan.rows, plan.vals)
-        marg = float(np.abs(rows - nu).max())
-        res = {"n": n, "eps": eps, "guaranteed": exact, "cost": cost,
-               "phases": sol.phases, "rounds": sol.rounds,
-               "additive_gap": gap, "additive_gap_bound": bound,
-               "dual_feasible": feas, "plan_nnz": plan.nnz,
-               "row_marginal_err": marg, "wall_s": wall}
-        ok &= bool(gap <= bound and feas and np.isfinite(cost)
-                   and marg < 1e-5)
+        cert_ok, cert = _ot_certificates(sol, n, nu)
+        res = {"n": n, "eps": eps, "guaranteed": exact, **cert,
+               "wall_s": wall}
+        ok &= cert_ok
         if exact:
             t1 = time.monotonic()
             opt = exact_ot_cost(c.cpu().numpy(), nu, mu)
             res.update(exact_cost=opt, exact_s=time.monotonic() - t1)
             # guaranteed: cost <= OPT + eps * mass * max(c)
-            ok &= bool(opt - 1e-6 <= cost <= opt + bound + 1e-6)
+            bound = cert["additive_gap_bound"]
+            ok &= bool(opt - 1e-6 <= sol.cost <= opt + bound + 1e-6)
         log(f"[4] ot {json.dumps(res, default=float)}")
         record["phases"].setdefault("ot", []).append(res)
+        ctx["ot"].append(((n, eps, exact), (c, nu, mu), sol.state(), wall))
     return ok
 
 
-def phase_card_vs_cpu(torch, rng, dev, record) -> bool:
+def _state_diff(a, b):
+    """Fields of two integer states (on any devices) that differ."""
+    out = []
+    for f in a._fields:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        if x.shape != y.shape or not bool((x == y).all()):
+            out.append(f)
+    return out
+
+
+def phase_card_vs_cpu(torch, rng, dev, record, ctx) -> bool:
     from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
     from repro_torch.core.costs import build_cost_matrix
     from repro_torch.core.exact import exact_assignment_cost
@@ -414,11 +494,11 @@ def phase_card_vs_cpu(torch, rng, dev, record) -> bool:
         t2 = time.monotonic()
         fields_ok = True
         for a, b in zip(on_card, on_cpu):
-            sa, sb = a.state(), b.state()
-            for f in sa._fields:
-                if not torch.equal(getattr(sa, f).cpu(), getattr(sb, f)):
-                    log(f"[5] {name} n={a.shape} field {f} differs")
-                    fields_ok = False
+            for f in _state_diff(a.state(), b.state()):
+                log(f"[5] {name} n={a.shape} field {f} differs")
+                fields_ok = False
+        ctx.setdefault("ragged", {})[name] = (spec, eps, insts_dev,
+                                              [b.state() for b in on_cpu])
         res = {"problem": name, "eps": eps, "sizes": sizes,
                "state_equal": fields_ok, "card_s": t1 - t0,
                "cpu_s": t2 - t1,
@@ -439,6 +519,249 @@ def phase_card_vs_cpu(torch, rng, dev, record) -> bool:
     record["phases"]["assignment_exact"] = res
     # guaranteed: cost <= OPT + eps * m * max(c)
     ok &= bool(opt - 1e-3 <= sol.cost <= opt + sol.additive_gap_bound())
+    return ok
+
+
+def _count_scanned(ops, run):
+    """Run ``run()`` with ``slack_propose`` counting the (row, column)
+    elements its active rows read; returns (elements, run's result)."""
+    seen = [0]
+    orig = ops.slack_propose_batched
+
+    def counting(c_int, *a, active_b=None):
+        seen[0] += int(active_b.sum()) * int(c_int.shape[2])
+        return orig(c_int, *a, active_b=active_b)
+
+    ops.slack_propose_batched = counting
+    try:
+        out = run()
+    finally:
+        ops.slack_propose_batched = orig
+    return seen[0], out
+
+
+def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
+               c_int, k):
+    """One fused kernel against its plain version and the stepped core on
+    the same state and k: equality, times and the bound. The bound counts
+    what this chunk needs: c_int read once on the lanes that took a phase,
+    the state read and written once, and 3 int32 operations (add,
+    compare, select) per element the propose steps read, as the stepped
+    run's ``slack_propose`` calls count them."""
+    got = kernel()
+    ref = plain()
+    scanned, step = _count_scanned(ops, stepped)
+    torch.cuda.synchronize()
+    diff_plain = _state_diff(got, ref)
+    diff_stepped = _state_diff(got, step)
+    ok = not diff_plain and not diff_stepped
+    err = max(int((getattr(got, f).cpu().long()
+                   - getattr(ref, f).cpu().long()).abs().max())
+              for f in got._fields)
+    ms = cuda_ms(torch, kernel, reps=10)
+    plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+    stepped_ms = cuda_ms(torch, stepped, reps=3, warmup=1)
+    ran = int((got.phases > state0.phases).sum())
+    per_lane = c_int[0].numel() * 4
+    state_bytes = sum(t.numel() * 4 for t in state0)
+    nbytes = ran * per_lane + 2 * state_bytes
+    nops = 3 * scanned
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / INT32_OP_PER_S
+    row = {"name": name, "shape": list(shape), "k": k, "ok": ok,
+           "differs_from_plain": diff_plain,
+           "differs_from_stepped": diff_stepped, "max_abs_err": float(err),
+           "ms": ms, "plain_ms": plain_ms, "stepped_ms": stepped_ms,
+           "library_ms": None, "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes": nbytes, "bound_ops": nops,
+           "lanes_ran": ran,
+           "phases": (got.phases - state0.phases).tolist(),
+           "rounds": (got.rounds - state0.rounds).tolist()}
+    return row
+
+
+def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
+    """Each fused kernel for one k = 8 chunk from a state a few stepped
+    phases in: Fig. 1-like point clouds (B lanes of n uniform points,
+    euclidean), and Dirichlet masses for OT."""
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.pushrelabel import (
+        _max_phases, assignment_prologue, init_assignment_state,
+        run_assignment_phases)
+    from repro_torch.core.transport import (
+        init_ot_state, ot_phase_cap, ot_prologue, ot_termination_threshold,
+        run_ot_phases)
+    from repro_torch.kernels.fused_phase import (
+        fused_assignment_phases_ref, fused_ot_phases_ref)
+
+    k = SIZES["fused_k"]
+    i32 = torch.int32
+
+    def costs(b, n):
+        return torch.stack([build_cost_matrix(
+            _points(rng, n), _points(rng, n), "euclidean", device=dev)
+            for _ in range(b)])
+
+    b, n, eps, warm = SIZES["fused_assignment"]
+    eps_t = torch.full((b,), eps, dtype=torch.float32, device=dev)
+    _, c_int, _, _, _ = assignment_prologue(costs(b, n), eps_t)
+    thr = torch.full((b,), int(eps * n), dtype=i32, device=dev)
+    cap = torch.full((b,), _max_phases(eps, n), dtype=i32, device=dev)
+    mv = torch.full((b,), n, dtype=i32, device=dev)
+    s0 = run_assignment_phases(c_int, init_assignment_state(b, n, n, dev),
+                               thr, cap, warm)
+    row_a = _fused_row(
+        torch, ops, "fused_assignment_phases", (b, n, n),
+        lambda: ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
+                                                m_valid=mv),
+        lambda: type(s0)(*fused_assignment_phases_ref(
+            c_int, *s0, thr, cap, mv, k=k)),
+        lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
+        s0, c_int, k)
+    del c_int, s0
+
+    b, n, eps, warm = SIZES["fused_ot"]
+    c = costs(b, n)
+    nu = rng.dirichlet(np.ones(n), b).astype(np.float32)
+    mu = rng.dirichlet(np.ones(n), b).astype(np.float32)
+    theta = np.float32(4.0 * n / eps)
+    theta_t = torch.full((b,), float(theta), dtype=torch.float32, device=dev)
+    eps_t = torch.full((b,), eps, dtype=torch.float32, device=dev)
+    c_int, s_int, d_int, _ = ot_prologue(
+        c, torch.as_tensor(nu, device=dev), torch.as_tensor(mu, device=dev),
+        theta_t, eps_t)
+    thr = torch.as_tensor(
+        [ot_termination_threshold(x, theta, eps) for x in nu], dtype=i32,
+        device=dev)
+    cap = torch.full((b,), ot_phase_cap(eps), dtype=i32, device=dev)
+    mr = 2 * n + 2
+    s0 = run_ot_phases(c_int, init_ot_state(s_int, d_int), thr, cap, warm,
+                       mr)
+    row_o = _fused_row(
+        torch, ops, "fused_ot_phases", (b, n, n),
+        lambda: ops.fused_run_ot_phases(c_int, s0, thr, cap, k, mr),
+        lambda: type(s0)(*fused_ot_phases_ref(
+            c_int, *s0, thr, cap, k=k, max_rounds=mr)),
+        lambda: run_ot_phases(c_int, s0, thr, cap, k, mr),
+        s0, c_int, k)
+    del c, c_int, s0
+    torch.cuda.empty_cache()
+    for row in (row_a, row_o):
+        log(f"[2] {json.dumps(row)}")
+        rows.append(row)
+        kernel_rows[row["name"]] = row
+    return row_a["ok"] and row_o["ok"]
+
+
+def phase_fused(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The fused route on the inputs of phases 3-5: the same integer
+    state and certificates, one fused launch per chunk dispatch, no
+    ``slack_propose`` launch and no round flag read."""
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
+
+    ok = True
+
+    def counted(route, fn):
+        ops.reset_launches()
+        rdev.reset_sync_counts()
+        res = fn()
+        launches[route] = dict(ops.launches)
+        syncs = dict(rdev.sync_counts)
+        log(f"[6] {route}: launches {launches[route]}, syncs {syncs}")
+        return res, syncs
+
+    def route_ok(route, kernel, dispatches, syncs):
+        got = launches[route]
+        good = (got[kernel] == dispatches and got["slack_propose"] == 0
+                and syncs["round"] == 0 and dispatches > 0)
+        if not good:
+            log(f"[6] {route}: {kernel} launched {got[kernel]} times for "
+                f"{dispatches} chunk dispatches, slack_propose "
+                f"{got['slack_propose']}, round reads {syncs['round']}")
+        return good
+
+    # the Fig. 1 assignment, the costs of phase 3
+    n, eps = SIZES["assignment"]
+    c = ctx["assignment_c"]
+
+    def assignment():
+        out = []
+        for guaranteed, state, stepped_wall in ctx["assignment"]:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            sol = solve(ASSIGNMENT, {"c": c[None]}, eps,
+                        DispatchPolicy(guaranteed=guaranteed, fused=True),
+                        want=("cost", "duals", "matching", "state"),
+                        device=dev)[0]
+            sol.cost
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            cert_ok, cert = _assignment_certificates(sol, n, guaranteed)
+            diff = _state_diff(sol.state(), state)
+            res = {"n": n, "eps": eps, "guaranteed": guaranteed, **cert,
+                   "wall_s": wall, "stepped_wall_s": stepped_wall,
+                   "state_differs": diff}
+            log(f"[6] fused assignment {json.dumps(res, default=float)}")
+            record["phases"].setdefault("fused_assignment", []).append(res)
+            out.append((cert_ok and not diff, cert["dispatches"]))
+        return out
+
+    out, syncs = counted("fused_assignment", assignment)
+    ok &= all(o for o, _ in out)
+    ok &= route_ok("fused_assignment", "fused_assignment_phases",
+                   sum(d for _, d in out), syncs)
+
+    def transport():
+        out = []
+        for (n, eps, exact), (c, nu, mu), state, stepped_wall in ctx["ot"]:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            sol = solve(OT, [(c, nu, mu)], eps,
+                        DispatchPolicy(guaranteed=exact, fused=True),
+                        want=("cost", "duals", "plan_sparse", "state"),
+                        device=dev)[0]
+            sol.cost
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            cert_ok, cert = _ot_certificates(sol, n, nu)
+            diff = _state_diff(sol.state(), state)
+            res = {"n": n, "eps": eps, "guaranteed": exact, **cert,
+                   "wall_s": wall, "stepped_wall_s": stepped_wall,
+                   "state_differs": diff}
+            log(f"[6] fused ot {json.dumps(res, default=float)}")
+            record["phases"].setdefault("fused_ot", []).append(res)
+            out.append((cert_ok and not diff, cert["dispatches"]))
+        return out
+
+    out, syncs = counted("fused_ot", transport)
+    ok &= all(o for o, _ in out)
+    ok &= route_ok("fused_ot", "fused_ot_phases", sum(d for _, d in out),
+                   syncs)
+
+    # the ragged batch of phase 5 against the CPU's stepped state
+    def ragged():
+        good = True
+        for name, (spec, eps, insts, cpu_states) in ctx["ragged"].items():
+            for mode in ("lockstep", "compact"):
+                t0 = time.monotonic()
+                sols = solve(spec, insts, eps,
+                             DispatchPolicy(mode=mode, fused=True),
+                             want=("cost", "state"), device=dev)
+                wall = time.monotonic() - t0
+                diffs = [_state_diff(s.state(), st)
+                         for s, st in zip(sols, cpu_states)]
+                res = {"problem": name, "mode": mode, "eps": eps,
+                       "state_equal": not any(diffs), "card_s": wall}
+                log(f"[6] fused ragged {json.dumps(res)}")
+                record["phases"].setdefault("fused_ragged", []).append(res)
+                good &= not any(diffs)
+        return good
+
+    good, syncs = counted("fused_ragged", ragged)
+    got = launches["fused_ragged"]
+    ok &= bool(good and got["fused_assignment_phases"] > 0
+               and got["fused_ot_phases"] > 0 and got["slack_propose"] == 0
+               and syncs["round"] == 0)
     return ok
 
 

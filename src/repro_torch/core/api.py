@@ -10,8 +10,11 @@ the :class:`DispatchPolicy` selects:
                   (``core/compaction.py``), per-instance eps supported.
 
 Results are identical across the two, lane for lane. It runs on the CUDA
-device unless ``device="cpu"`` is passed; on the card every propose round
-launches the ``slack_propose`` kernel.
+device unless ``device="cpu"`` is passed. On the card the stepped route
+(the default) launches the ``slack_propose`` kernel in every propose
+round; ``DispatchPolicy(fused=True)`` swaps the spec for its fused variant
+(``FUSED_ASSIGNMENT`` / ``FUSED_OT``), which runs a whole k-phase chunk in
+one launch of the fused kernel, with the same results bit for bit.
 
 ``want=`` (artifact names, also settable on the policy) returns the typed
 Solution surface (``core/solution.py``): a ``SolutionBatch`` for the dict
@@ -21,8 +24,7 @@ dict form, per-instance dicts for the ragged form.
 
 Paths of the reference this slice of the port does not have yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them:
-``mode="mesh"``, ``fused=True``, ``solver != "pushrelabel"`` and
-``validate=True``.
+``mode="mesh"``, ``solver != "pushrelabel"`` and ``validate=True``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,13 @@ import numpy as np
 
 from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
 from .device import resolve_device
-from .problem import ASSIGNMENT, OT  # noqa: F401  (re-exported with solve)
+from .problem import (  # noqa: F401  (re-exported with solve)
+    ASSIGNMENT,
+    FUSED_ASSIGNMENT,
+    FUSED_OT,
+    OT,
+    fused_variant,
+)
 from . import solution as solution_mod
 from .solution import Solution, SolutionBatch, SolveStats
 
@@ -59,8 +67,10 @@ class DispatchPolicy:
       guaranteed: run at eps/3 for the paper's <= OPT + eps*m bound.
       want: artifacts of the typed Solution surface; None keeps the
         legacy return surface. ``solve(..., want=...)`` overrides it.
-      validate, fused, solver: not ported yet; only the defaults
-        (False, False, "pushrelabel") are accepted.
+      fused: run each chunk as one launch of the fused kernel
+        (``FUSED_ASSIGNMENT`` / ``FUSED_OT``); same results.
+      validate, solver: not ported yet; only the defaults (False,
+        "pushrelabel") are accepted.
     """
     mode: str = "auto"
     mesh: Any = None
@@ -86,10 +96,6 @@ class DispatchPolicy:
             raise NotImplementedError(
                 "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
                 "11, multi-device)")
-        if self.fused:
-            raise NotImplementedError(
-                "fused=True is not ported yet (ROADMAP.md Queue 1 item 6, "
-                "fused route, with Queue 2 items 4-5)")
         if self.solver != "pushrelabel":
             raise NotImplementedError(
                 f"solver={self.solver!r} is not ported yet (ROADMAP.md "
@@ -127,6 +133,8 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
                   policy: DispatchPolicy, keep_state: bool = False,
                   obs=None, device=None, **prep_kw):
     mode = policy.resolved_mode()
+    if policy.fused:
+        spec = fused_variant(spec)
     if mode == "lockstep":
         eps_u = np.unique(np.asarray(eps, np.float64))
         if eps_u.size > 1:

@@ -20,8 +20,10 @@ contract and bound to a problem by a spec object:
   ``epilogue``    completion and pricing.
 
 Unlike the reference, the per-instance functions take the batch axis
-directly (the reference ``vmap``s them). The fused and sharded hooks of
-the reference specs wait for later slices of the port.
+directly (the reference ``vmap``s them). ``FUSED_ASSIGNMENT`` /
+``FUSED_OT`` are the same specs with ``run_phases`` on the fused kernels
+(``fused_variant`` maps one to the other); the sharded hooks of the
+reference specs wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .device import as_f32, resolve_device
 from .pushrelabel import (
     AssignmentResult,
@@ -476,5 +479,101 @@ class OTSpec:
                 "rounds": sol.rounds, "theta": sol.theta}
 
 
+# --------------------------------------------------------------------------
+# Fused-kernel spec variants
+# --------------------------------------------------------------------------
+#
+# Same protocol, prologue, epilogue and result surface; only ``run_phases``
+# differs: it launches one fused kernel per chunk (``kernels/ops.py``,
+# ``csrc/fused_*.cu``) that runs the phase and round loops on the card,
+# instead of the stepped cores' launches and host reads per round. The
+# fused kernels equal the stepped cores bit for bit, so chained
+# resumability, lockstep == compact and padded-lane inertness carry over.
+# ``name`` stays "assignment" / "ot", so result shaping and bucketing
+# treat them as the same problem; ``stepped`` points back at the base
+# spec.
+
+
+class FusedAssignmentSpec(AssignmentSpec):
+    """AssignmentSpec whose k-phase loop is the fused kernel."""
+
+    fused = True
+
+    def run_phases(self, data, state, k: int):
+        return ops.fused_run_assignment_phases(
+            data["c_int"], state, data["threshold"], data["phase_cap"], k,
+            m_valid=data["m_valid"])
+
+    def _lockstep_k(self, eps_arr, m: int) -> int:
+        return max(_max_phases(float(e), m) for e in eps_arr) + 1
+
+    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
+                       guaranteed: bool = False, keep_state: bool = False,
+                       device=None):
+        return _fused_lockstep(self, inputs, eps, sizes=sizes,
+                               guaranteed=guaranteed, keep_state=keep_state,
+                               device=device)
+
+
+class FusedOTSpec(OTSpec):
+    """OTSpec whose k-phase loop is the fused kernel."""
+
+    fused = True
+
+    def run_phases(self, data, state, k: int):
+        _, m, n = data["c_int"].shape
+        return ops.fused_run_ot_phases(
+            data["c_int"], state, data["threshold"], data["phase_cap"], k,
+            int(m + n + 2))
+
+    def _lockstep_k(self, eps_arr, m: int) -> int:
+        return max(ot_phase_cap(float(e)) for e in eps_arr) + 1
+
+    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
+                       guaranteed: bool = False, keep_state: bool = False,
+                       theta=None, device=None):
+        return _fused_lockstep(self, inputs, eps, sizes=sizes,
+                               guaranteed=guaranteed, keep_state=keep_state,
+                               device=device, theta=theta)
+
+
+def _fused_lockstep(spec, inputs, eps, *, sizes, guaranteed, keep_state,
+                    device, **prep_kw):
+    """Lockstep for the fused specs: one compacting dispatch with k above
+    every lane's phase cap, so the whole batch runs to termination in a
+    single launch and no compaction ever fires. Returns ``(result, state
+    or None)``."""
+    from .compaction import solve_compacting
+
+    b, m, _ = (int(s) for s in np.shape(inputs["c"]))
+    k_all = spec._lockstep_k(eps_array(eps, b, guaranteed), m)
+    r, stats = solve_compacting(
+        spec, inputs, eps, sizes=sizes, k=k_all, guaranteed=guaranteed,
+        keep_state=keep_state, device=device, **prep_kw)
+    return r, (stats.final_state if keep_state else None)
+
+
 ASSIGNMENT = AssignmentSpec()
 OT = OTSpec()
+FUSED_ASSIGNMENT = FusedAssignmentSpec()
+FUSED_OT = FusedOTSpec()
+FusedAssignmentSpec.stepped = ASSIGNMENT
+FusedOTSpec.stepped = OT
+AssignmentSpec.fused = False
+OTSpec.fused = False
+
+
+def fused_variant(spec):
+    """Map a base spec to its fused-kernel variant (identity on the fused
+    specs themselves). A spec defined elsewhere registers its own by a
+    ``fused_spec`` attribute. Raises for a spec without one."""
+    if getattr(spec, "fused", False):
+        return spec
+    if spec is ASSIGNMENT:
+        return FUSED_ASSIGNMENT
+    if spec is OT:
+        return FUSED_OT
+    alt = getattr(spec, "fused_spec", None)
+    if alt is not None:
+        return alt
+    raise ValueError(f"no fused variant registered for spec {spec!r}")

@@ -16,44 +16,24 @@
 // is computed only for admissible entries (1-5 % of them on the solver's
 // path), so the kernel is bound by bytes.
 //
-// Design: one warp per (instance, row). The warp strides over the row in
-// 16-byte loads (int4 of c_int and y_a, uchar4 of avail) when the row is
-// 16-byte aligned, else in 4-byte loads; consecutive lanes touch
-// consecutive addresses, so every load is coalesced. y_a and avail are
-// shared by all rows of an instance and stay in L1/L2. A __shfl_xor
-// butterfly reduces the 32 partial minima. Rows that are not active skip
-// the read entirely (their answer is -1 whatever c_int holds), so a late
-// round in which few rows still propose reads few bytes.
+// Design: one warp per (instance, row), the scan of propose.cuh (shared
+// with the fused kernels). The warp strides over the row in 16-byte loads
+// (int4 of c_int and y_a, uchar4 of avail) when the row is 16-byte
+// aligned, else in 4-byte loads; consecutive lanes touch consecutive
+// addresses, so every load is coalesced. y_a and avail are shared by all
+// rows of an instance and stay in L1/L2. A __shfl_xor butterfly reduces
+// the 32 partial minima. Rows that are not active skip the read entirely
+// (their answer is -1 whatever c_int holds), so a late round in which few
+// rows still propose reads few bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "propose.cuh"
+
 namespace {
 
-constexpr uint32_t kH1 = 2654435761u;
-constexpr uint32_t kH2 = 2246822519u;
-constexpr uint32_t kH3 = 3266489917u;
 constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ uint32_t mix(uint32_t h) {
-  h ^= h >> 15;
-  h *= kH2;
-  h ^= h >> 13;
-  h *= kH3;
-  return h ^ (h >> 16);
-}
-
-__device__ __forceinline__ void visit(int cij, int yb, int yaj,
-                                      unsigned char avj, uint32_t base,
-                                      int j, unsigned long long &best,
-                                      bool &any) {
-  const bool adm = (yb + yaj == cij + 1) && avj;
-  const uint32_t key = adm ? mix(base + (uint32_t)j * kH2) : 0xFFFFFFFFu;
-  const unsigned long long packed =
-      ((unsigned long long)key << 32) | (unsigned long long)(uint32_t)j;
-  best = packed < best ? packed : best;
-  any = any || adm;
-}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -82,40 +62,11 @@ slack_propose_kernel(const int *__restrict__ c, const int *__restrict__ y_b,
   const int yb = y_b[warp];
   const uint32_t base = (uint32_t)i * kH1 + (uint32_t)salt[b] * kH3;
 
-  unsigned long long best = ~0ull;
-  bool any = false;
-  if (kVec) {
-    const int n4 = n >> 2;
-    const int4 *c4 = reinterpret_cast<const int4 *>(crow);
-    const int4 *ya4 = reinterpret_cast<const int4 *>(ya);
-    const uchar4 *av4 = reinterpret_cast<const uchar4 *>(av);
-#pragma unroll 4
-    for (int q = lane; q < n4; q += 32) {
-      const int4 cv = __ldg(c4 + q);
-      const int4 yv = __ldg(ya4 + q);
-      const uchar4 avv = __ldg(av4 + q);
-      const int j = q << 2;
-      visit(cv.x, yb, yv.x, avv.x, base, j, best, any);
-      visit(cv.y, yb, yv.y, avv.y, base, j + 1, best, any);
-      visit(cv.z, yb, yv.z, avv.z, base, j + 2, best, any);
-      visit(cv.w, yb, yv.w, avv.w, base, j + 3, best, any);
-    }
-  } else {
-#pragma unroll 4
-    for (int j = lane; j < n; j += 32) {
-      visit(__ldg(crow + j), yb, __ldg(ya + j), __ldg(av + j), base, j,
-            best, any);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-    best = other < best ? other : best;
-  }
-  any = __any_sync(0xFFFFFFFFu, any);
+  const RowPick pick =
+      propose_row<kVec, true>(crow, ya, av, yb, base, n, lane);
   if (lane == 0) {
-    col[warp] = any ? (int)(best & 0xFFFFFFFFull) : -1;
-    key[warp] = (long long)(best >> 32);
+    col[warp] = pick.any ? (int)(pick.best & 0xFFFFFFFFull) : -1;
+    key[warp] = (long long)(pick.best >> 32);
   }
 }
 

@@ -8,15 +8,17 @@ raises: there is no fallback from the card to the plain version.
 The kernels are built at first use from ``csrc/*.cu`` with ``nvcc`` into
 ``build/repro_torch/`` at the root of the checkout (one ``nvcc`` process
 per source, all started together) and loaded with ``ctypes``; a shared
-library is named by the hash of its source, so an edited source is
-rebuilt. ``launches`` counts, per kernel, the launches made through these
-wrappers, and nothing else.
+library is named by the hash of its source and of every header the source
+includes from ``csrc/``, so an edited source or header is rebuilt.
+``launches`` counts, per kernel, the launches made through these wrappers,
+and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +27,7 @@ from pathlib import Path
 import torch
 
 from . import cost_matrix as _cm
+from . import fused_phase as _fp
 from . import slack_propose as _sp
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -34,18 +37,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# kernel name -> (C entry point, argtypes)
+# kernel name -> (source in csrc/, C entry point, argtypes)
 _ENTRY = {
-    "slack_propose": ("slack_propose_launch",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "cost_matrix": ("cost_matrix_launch", [_P, _P, _P, _I, _I, _I, _I, _I,
-                                           _P]),
+    "slack_propose": ("slack_propose.cu", "slack_propose_launch",
+                      [_P] * 8 + [_I] * 4 + [_P]),
+    "cost_matrix": ("cost_matrix.cu", "cost_matrix_launch",
+                    [_P] * 3 + [_I] * 5 + [_P]),
+    "fused_assignment_phases": ("fused_assignment.cu",
+                                "fused_assignment_launch",
+                                [_P] * 19 + [_I] * 5 + [_P]),
+    "fused_ot_phases": ("fused_ot.cu", "fused_ot_launch",
+                        [_P] * 20 + [_I] * 6 + [_P]),
 }
+# kernel name -> C function giving its workspace in bytes for (B, m, n)
+_WORKSPACE = {
+    "fused_assignment_phases": "fused_assignment_workspace",
+    "fused_ot_phases": "fused_ot_workspace",
+}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _METRIC_ID = {"sqeuclidean": 0, "euclidean": 1, "l1": 2}
 
 launches = {name: 0 for name in _ENTRY}
 build_log: dict = {}
 _libs: dict = {}
+_workspace_fns: dict = {}
 
 
 def reset_launches() -> None:
@@ -65,6 +80,25 @@ def _nvcc() -> str:
                        "built")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of ``src`` and of every header it includes from its directory,
+    recursively, so an edit to a shared header rebuilds its users."""
+    h = hashlib.sha256()
+    todo, seen = [src], set()
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        text = f.read_bytes()
+        h.update(f.name.encode() + b"\0" + text)
+        for inc in _INCLUDE.findall(text.decode()):
+            dep = f.parent / inc
+            if dep.is_file():
+                todo.append(dep)
+    return h.hexdigest()[:16]
+
+
 def build_kernels() -> float:
     """Build (if needed) and load every kernel; returns the seconds spent.
     Raises if a source fails to compile or load."""
@@ -73,10 +107,9 @@ def build_kernels() -> float:
     t0 = time.monotonic()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {}
-    for name in _ENTRY:
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        todo[name] = (src, BUILD_DIR / f"lib{name}-{digest}.so")
+    for name, (source, _, _) in _ENTRY.items():
+        src = _CSRC / source
+        todo[name] = (src, BUILD_DIR / f"lib{name}-{source_digest(src)}.so")
     nvcc = None
     procs = {}
     try:
@@ -107,12 +140,24 @@ def build_kernels() -> float:
                 proc.wait()
     for name, (_, so) in todo.items():
         lib = ctypes.CDLL(str(so))
-        fn_name, argtypes = _ENTRY[name]
+        _, fn_name, argtypes = _ENTRY[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _libs[name] = fn
+        if name in _WORKSPACE:
+            ws = getattr(lib, _WORKSPACE[name])
+            ws.argtypes = [_I, _I, _I]
+            ws.restype = ctypes.c_longlong
+            _workspace_fns[name] = ws
     return time.monotonic() - t0
+
+
+def _workspace(name: str, b: int, m: int, n: int, device) -> torch.Tensor:
+    """Scratch of the kernel ``name`` for a (b, m, n) batch, in bytes."""
+    build_kernels()
+    size = int(_workspace_fns[name](b, m, n))
+    return torch.empty((size,), dtype=torch.uint8, device=device)
 
 
 def _launch(name: str, *args) -> None:
@@ -145,6 +190,10 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return True
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def slack_propose_batched(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
     """Batched propose step: (B, m, n) int32 costs, (B, m) / (B, n) int32
     duals, (B, n) bool availability, (B,) int32 per-lane salt, optional
@@ -170,7 +219,7 @@ def slack_propose_batched(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
     _launch("slack_propose", c_int.data_ptr(), y_b.data_ptr(),
             y_a.data_ptr(), avail_a.data_ptr(), active_b.data_ptr(),
             salt.data_ptr(), col.data_ptr(), key.data_ptr(), b, m, n, vec,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     return col, key
 
 
@@ -203,10 +252,77 @@ def cost_matrix_batched(x, y, metric: str = "sqeuclidean"):
     out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
     _launch("cost_matrix", x.data_ptr(), y.data_ptr(), out.data_ptr(), b, m,
             n, d, _METRIC_ID[metric],
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     return out
 
 
 def cost_matrix(x, y, metric: str = "sqeuclidean"):
     """Unbatched form: (m, d) x (n, d) -> (m, n); the kernel with B = 1."""
     return cost_matrix_batched(x[None], y[None], metric)[0]
+
+
+def fused_run_assignment_phases(c_int, state, threshold, phase_cap, k: int,
+                                m_valid=None):
+    """At most ``k`` assignment phases per lane in one launch: the fused
+    counterpart of ``core.pushrelabel.run_assignment_phases``, with its
+    signature. ``c_int`` (B, m, n) int32, ``state`` a
+    ``PushRelabelState`` of (B, ...) int32 tensors, ``threshold`` /
+    ``phase_cap`` / ``m_valid`` (B,) int32 (``m_valid`` None: every row).
+    Returns a new state of the same type; ``state`` is not modified."""
+    b, m, n = c_int.shape
+    dev = c_int.device
+    if m_valid is None:
+        m_valid = torch.full((b,), m, dtype=torch.int32, device=dev)
+    if not _on_cuda(c_int):
+        return type(state)(*_fp.fused_assignment_phases_ref(
+            c_int, *state, threshold, phase_cap, m_valid, k=k))
+    _check("c_int", c_int, torch.int32, (b, m, n), dev)
+    # the stepped cores may hand over views (match_ab is a slice)
+    state = type(state)(*(t.contiguous() for t in state))
+    for f, shape in zip(state._fields, [(b, m), (b, n), (b, m), (b, n),
+                                        (b,), (b,), (b,)]):
+        _check(f, getattr(state, f), torch.int32, shape, dev)
+    for f, t in (("threshold", threshold), ("phase_cap", phase_cap),
+                 ("m_valid", m_valid)):
+        _check(f, t, torch.int32, (b,), dev)
+    out = [torch.empty_like(t) for t in state]
+    ws = _workspace("fused_assignment_phases", b, m, n, dev)
+    vec = int(n % 4 == 0 and c_int.data_ptr() % 16 == 0)
+    _launch("fused_assignment_phases", c_int.data_ptr(),
+            *(t.data_ptr() for t in state), threshold.data_ptr(),
+            phase_cap.data_ptr(), m_valid.data_ptr(),
+            *(t.data_ptr() for t in out), ws.data_ptr(), b, m, n, int(k),
+            vec, _stream(dev))
+    return type(state)(*out)
+
+
+def fused_run_ot_phases(c_int, state, threshold, phase_cap, k: int,
+                        max_rounds: int):
+    """At most ``k`` OT phases per lane in one launch: the fused
+    counterpart of ``core.transport.run_ot_phases``, with its signature.
+    ``c_int`` (B, nb, na) int32, ``state`` an ``OTState`` of (B, ...)
+    int32 tensors, ``threshold`` / ``phase_cap`` (B,) int32. Returns a new
+    state of the same type; ``state`` is not modified."""
+    b, nb, na = c_int.shape
+    dev = c_int.device
+    if not _on_cuda(c_int):
+        return type(state)(*_fp.fused_ot_phases_ref(
+            c_int, *state, threshold, phase_cap, k=k,
+            max_rounds=max_rounds))
+    _check("c_int", c_int, torch.int32, (b, nb, na), dev)
+    state = type(state)(*(t.contiguous() for t in state))
+    for f, shape in zip(state._fields, [(b, nb), (b, na), (b, nb), (b, na),
+                                        (b, nb, na), (b, nb, na), (b,),
+                                        (b,)]):
+        _check(f, getattr(state, f), torch.int32, shape, dev)
+    for f, t in (("threshold", threshold), ("phase_cap", phase_cap)):
+        _check(f, t, torch.int32, (b,), dev)
+    out = [torch.empty_like(t) for t in state]
+    ws = _workspace("fused_ot_phases", b, nb, na, dev)
+    vec = int(na % 4 == 0 and c_int.data_ptr() % 16 == 0)
+    _launch("fused_ot_phases", c_int.data_ptr(),
+            *(t.data_ptr() for t in state), threshold.data_ptr(),
+            phase_cap.data_ptr(), *(t.data_ptr() for t in out),
+            ws.data_ptr(), b, nb, na, int(k), int(max_rounds), vec,
+            _stream(dev))
+    return type(state)(*out)

@@ -143,12 +143,42 @@ def test_want_gating_and_validation():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mode="mesh"), "item 11"), (dict(mesh=object()), "item 11"),
-    (dict(fused=True), "item 6"), (dict(solver="sinkhorn"), "item 8"),
+    (dict(solver="sinkhorn"), "item 8"),
     (dict(solver="auto"), "item 8"), (dict(validate=True), "item 7"),
 ])
 def test_unported_policies_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tapi.DispatchPolicy(**kw)
+
+
+@pytest.mark.parametrize("name", ["assignment", "ot"])
+def test_fused_policy_routes_through_fused_spec(monkeypatch, name):
+    """``DispatchPolicy(fused=True)`` runs every chunk through the fused
+    spec's ``run_phases`` (FUSED_ASSIGNMENT / FUSED_OT), never through the
+    stepped propose step."""
+    from repro_torch.core import matching, problem
+
+    fused = getattr(problem, f"FUSED_{name.upper()}")
+    calls = {"fused": 0, "propose": 0}
+    run = type(fused).run_phases
+
+    def counted_run(self, data, state, k):
+        calls["fused"] += self is fused
+        return run(self, data, state, k)
+
+    def no_propose(*a, **kw):
+        calls["propose"] += 1
+        raise AssertionError("the fused route proposed through the stepped "
+                             "core")
+
+    monkeypatch.setattr(type(fused), "run_phases", counted_run)
+    monkeypatch.setattr(matching, "_propose_kernel", no_propose)
+    inputs, sizes = _dict_batch(name, 5)
+    spec = getattr(tapi, name.upper())
+    _, stats = tapi.solve(spec, inputs, 0.05, tapi.DispatchPolicy(
+        fused=True, chunk=2), sizes=sizes, device="cpu")
+    assert calls == {"fused": stats.dispatches, "propose": 0}
+    assert stats.dispatches > 1
 
 
 def test_obs_events_and_sync_counts():

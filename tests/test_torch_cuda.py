@@ -109,3 +109,136 @@ def test_solve_on_card_equals_cpu(dev, name):
         sa, sb = a.state(), b.state()
         for f in sa._fields:
             assert torch.equal(getattr(sa, f).cpu(), getattr(sb, f)), f
+
+
+def _fused_assignment_inputs(dev, b, m, n, seed, eps=(0.03, 0.06, 0.1)):
+    """``b`` lanes at eps cycling through ``eps`` (so they stop at
+    different phases) and ragged ``m_valid``; rows beyond it are padding."""
+    from repro_torch.core.pushrelabel import PAD_COST, _max_phases
+
+    rng = np.random.default_rng(seed)
+    eps = np.resize(np.asarray(eps), b)
+    mv = np.maximum(m - (np.arange(b) % 3) * (m // 5), 1).astype(np.int32)
+    c_int = np.floor(rng.uniform(size=(b, m, n))
+                     / eps[:, None, None]).astype(np.int32)
+    for i in range(b):
+        c_int[i, mv[i]:] = PAD_COST
+    thr = np.array([int(e * v) for e, v in zip(eps, mv)], np.int32)
+    cap = np.array([_max_phases(e, m) for e in eps], np.int32)
+    return [torch.as_tensor(a, device=dev) for a in (c_int, thr, cap, mv)]
+
+
+def _fused_ot_inputs(dev, b, nb, na, seed, eps=(0.05, 0.1, 0.08)):
+    from repro_torch.core.transport import init_ot_state, ot_phase_cap
+
+    rng = np.random.default_rng(seed)
+    eps = np.resize(np.asarray(eps), b)
+    theta = (4.0 * max(nb, na) / eps).astype(np.float32)
+    c_int = np.floor(rng.uniform(size=(b, nb, na))
+                     / eps[:, None, None]).astype(np.int32)
+    s_int = np.floor(rng.dirichlet(np.ones(nb), b) * theta[:, None])
+    d_int = np.ceil(rng.dirichlet(np.ones(na), b) * theta[:, None])
+    thr = np.array([int(e * s.sum()) for e, s in zip(eps, s_int)], np.int32)
+    cap = np.array([ot_phase_cap(e) for e in eps], np.int32)
+    state = init_ot_state(torch.as_tensor(s_int.astype(np.int32), device=dev),
+                          torch.as_tensor(d_int.astype(np.int32), device=dev))
+    return [torch.as_tensor(a, device=dev) for a in (c_int, thr, cap)], state
+
+
+def _states_equal(a, b):
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in a._fields)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,k", [(3, 24, 24, 3), (5, 33, 47, 8),
+                                     (4, 300, 256, 2), (1, 700, 800, 5)])
+def test_fused_assignment_kernel_equals_plain(dev, b, m, n, k):
+    """Chunk by chunk on the card, ragged m_valid, lanes that stop at
+    different phases, odd and 16-byte-aligned widths."""
+    from repro_torch.core.pushrelabel import init_assignment_state
+    from repro_torch.kernels.fused_phase import fused_assignment_phases_ref
+
+    c, thr, cap, mv = _fused_assignment_inputs(dev, b, m, n, b * m + n)
+    got = ref = init_assignment_state(b, m, n, dev)
+    for _ in range(6):
+        before = ops.launches["fused_assignment_phases"]
+        got = ops.fused_run_assignment_phases(c, got, thr, cap, k,
+                                              m_valid=mv)
+        assert ops.launches["fused_assignment_phases"] == before + 1
+        ref = type(ref)(*fused_assignment_phases_ref(c, *ref, thr, cap, mv,
+                                                     k=k))
+        torch.cuda.synchronize()
+        assert _states_equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nb,na,k", [(3, 16, 16, 3), (4, 21, 13, 8),
+                                       (2, 300, 290, 2), (1, 512, 512, 4)])
+def test_fused_ot_kernel_equals_plain(dev, b, nb, na, k):
+    from repro_torch.kernels.fused_phase import fused_ot_phases_ref
+
+    (c, thr, cap), got = _fused_ot_inputs(dev, b, nb, na, b * nb + na)
+    ref = got
+    for _ in range(4):
+        before = ops.launches["fused_ot_phases"]
+        got = ops.fused_run_ot_phases(c, got, thr, cap, k, nb + na + 2)
+        assert ops.launches["fused_ot_phases"] == before + 1
+        ref = type(ref)(*fused_ot_phases_ref(c, *ref, thr, cap, k=k,
+                                             max_rounds=nb + na + 2))
+        torch.cuda.synchronize()
+        assert _states_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_bad_operands(dev):
+    from repro_torch.core.pushrelabel import init_assignment_state
+
+    c, thr, cap, mv = _fused_assignment_inputs(dev, 2, 8, 8, 1)
+    state = init_assignment_state(2, 8, 8, dev)
+    with pytest.raises(TypeError):
+        ops.fused_run_assignment_phases(c.to(torch.int64), state, thr, cap,
+                                        2, m_valid=mv)
+    with pytest.raises(ValueError):
+        ops.fused_run_assignment_phases(c, state, thr[:1], cap, 2,
+                                        m_valid=mv)
+    with pytest.raises(ValueError):
+        ops.fused_run_assignment_phases(c.transpose(1, 2), state, thr, cap,
+                                        2, m_valid=mv)
+    with pytest.raises(ValueError):
+        ops.fused_run_assignment_phases(c, state._replace(
+            y_b=state.y_b.cpu()), thr, cap, 2, m_valid=mv)
+    (oc, othr, ocap), ostate = _fused_ot_inputs(dev, 2, 8, 8, 1)
+    with pytest.raises(ValueError):
+        ops.fused_run_ot_phases(oc, ostate._replace(
+            f_hi=ostate.f_hi[:, :4]), othr, ocap, 2, 18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lockstep", "compact"])
+@pytest.mark.parametrize("name", ["assignment", "ot"])
+def test_fused_solve_on_card_equals_stepped_cpu(dev, name, mode):
+    """The fused route on the card launches only the fused kernel and
+    reads no round flag, and gives the stepped CPU route's state."""
+    from repro_torch.core import device as rdev
+    from repro_torch.core.api import DispatchPolicy
+
+    rng = np.random.default_rng(4)
+    insts = []
+    for n in (20, 45, 64):
+        c = rng.uniform(size=(n, n)).astype(np.float32)
+        insts.append(c if name == "assignment" else (
+            c, rng.dirichlet(np.ones(n)).astype(np.float32),
+            rng.dirichlet(np.ones(n)).astype(np.float32)))
+    spec = ASSIGNMENT if name == "assignment" else OT
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    card = solve(spec, insts, 0.05, DispatchPolicy(mode=mode, fused=True),
+                 want=("cost", "state"), device=dev)
+    assert ops.launches[f"fused_{name}_phases"] > 0
+    assert ops.launches["slack_propose"] == 0
+    assert rdev.sync_counts["round"] == 0
+    cpu = solve(spec, insts, 0.05, DispatchPolicy(mode=mode),
+                want=("cost", "state"), device="cpu")
+    for a, b in zip(card, cpu):
+        assert _states_equal(a.state(), b.state())

@@ -149,6 +149,27 @@ def test_solver_entry_points_refuse_cpu_tensors_without_device(
         calls[entry]()
 
 
+def test_library_name_covers_included_headers(tmp_path):
+    """A kernel's shared library is named by the hash of its source and
+    of the headers it includes, so an edited header rebuilds every
+    kernel that includes it (directly or through another header)."""
+    import shutil
+
+    csrc = REPO / "src" / "repro_torch" / "csrc"
+    for f in csrc.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    sources = [tmp_path / source for source, _, _ in ops._ENTRY.values()]
+    before = {s.name: ops.source_digest(s) for s in sources}
+    assert before == {s.name: ops.source_digest(csrc / s.name)
+                      for s in sources}
+    hdr = tmp_path / "hash.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {s.name: ops.source_digest(s) for s in sources}
+    changed = {k for k in before if before[k] != after[k]}
+    assert changed == {"slack_propose.cu", "fused_assignment.cu",
+                       "fused_ot.cu"}
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

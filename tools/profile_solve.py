@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one ``solve`` goes on the card (PyTorch profiler).
 
-    python3 tools/profile_solve.py [--seed 0] [--out build/profile.json]
+    python3 tools/profile_solve.py [--seed 0] [--fused]
+                                   [--out build/profile.json]
 
 Solves the Fig. 1 assignment (n = 10 000 points, eps = 0.01) and the
 n = 4096 OT instance of ``chip_smoke.py`` once to warm up, then once more
-under ``torch.profiler``, and reports for each: wall time (with the
+under ``torch.profiler``; with ``--fused`` it does the same on the fused
+route (``DispatchPolicy(fused=True)``) after each stepped case, on the
+same inputs, so both routes are measured in one call on one card. It
+reports for each: wall time (with the
 profiler on, which slows the host side), the summed device time of every
 kernel, their share of that wall time (the card's busy share; the rest is
 idle), the top kernels by device time, the host syncs and the launches of
@@ -64,6 +68,8 @@ def profile_case(torch, name, run):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused", action="store_true",
+                    help="also profile the fused route on the same inputs")
     ap.add_argument("--out", default="build/profile.json")
     args = ap.parse_args()
     root = Path(__file__).resolve().parents[1]
@@ -72,7 +78,7 @@ def main() -> int:
         print("profile_solve: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.core.api import ASSIGNMENT, OT, solve
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
     from repro_torch.core.costs import build_cost_matrix
 
     rng = np.random.default_rng(args.seed)
@@ -86,23 +92,32 @@ def main() -> int:
     nu = rng.dirichlet(np.ones(4096)).astype(np.float32)
     mu = rng.dirichlet(np.ones(4096)).astype(np.float32)
 
-    def assignment():
-        s = solve(ASSIGNMENT, {"c": c_a[None]}, 0.01, want=("cost",),
-                  device=dev)[0]
-        return {"phases": s.phases, "rounds": s.rounds}
+    def assignment(fused):
+        s = solve(ASSIGNMENT, {"c": c_a[None]}, 0.01,
+                  DispatchPolicy(fused=fused), want=("cost",), device=dev)[0]
+        return {"phases": s.phases, "rounds": s.rounds,
+                "dispatches": s.stats.dispatches}
 
-    def ot():
-        s = solve(OT, [(c_o, nu, mu)], 0.05, want=("cost",), device=dev)[0]
-        return {"phases": s.phases, "rounds": s.rounds}
+    def ot(fused):
+        s = solve(OT, [(c_o, nu, mu)], 0.05, DispatchPolicy(fused=fused),
+                  want=("cost",), device=dev)[0]
+        return {"phases": s.phases, "rounds": s.rounds,
+                "dispatches": s.stats.dispatches}
 
     smi = __import__("subprocess").run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
-    res = {"card": smi, "torch": torch.__version__, "cases": [
-        profile_case(torch, "assignment n=10000 eps=0.01", assignment),
-        profile_case(torch, "ot n=4096 eps=0.05", ot)]}
+    routes = (False, True) if args.fused else (False,)
+    cases = []
+    for label, fn in (("assignment n=10000 eps=0.01", assignment),
+                      ("ot n=4096 eps=0.05", ot)):
+        for fused in routes:
+            cases.append(profile_case(
+                torch, f"{label} {'fused' if fused else 'stepped'}",
+                lambda fn=fn, fused=fused: fn(fused)))
+    res = {"card": smi, "torch": torch.__version__, "cases": cases}
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

@@ -2,16 +2,20 @@
 """Wall time of ``solve()`` on the Fig. 1 assignment cell, for A/B runs.
 
     python3 tools/time_solve.py [--seed 0] [--reps 3] [--label NAME]
+                                [--fused]
 
 Solves the n = 10 000 assignment of ``chip_smoke.py`` (uniform points in
 the unit square, euclidean, eps = 0.01) once under the default policy to
 warm up, then ``reps`` times under the default policy and once under
-``guaranteed=True``. Prints one JSON line: the wall seconds of each solve
-(host clock around a solve that ends in a device synchronize), phases,
-rounds and host syncs by kind. It imports ``repro_torch`` from the tree it
-sits in, so two versions are compared by copying this file into the
-other tree's ``tools/`` and running both in one call, alternating
-(A, B, B, A). Needs one CUDA device.
+``guaranteed=True``. With ``--fused`` each of those solves is paired with
+the same solve on the fused route (``DispatchPolicy(fused=True)``), in
+turns (stepped, fused, fused, stepped, ...), so the two routes are
+compared in one call on one card. Prints one JSON line: the wall seconds
+of each solve (host clock around a solve that ends in a device
+synchronize), phases, rounds and host syncs by kind. It imports
+``repro_torch`` from the tree it sits in, so two versions are compared by
+copying this file into the other tree's ``tools/`` and running both in
+one call, alternating (A, B, B, A). Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--label", default="")
+    ap.add_argument("--fused", action="store_true",
+                    help="pair every solve with the fused route's")
     args = ap.parse_args()
     root = Path(__file__).resolve().parents[1]
     import torch
@@ -59,9 +65,21 @@ def main() -> int:
                 "syncs": dict(rdev.sync_counts)}
 
     run(DispatchPolicy())                   # warm-up (kernel build, caches)
-    out = {"label": args.label, "tree": str(root),
-           "default": [run(DispatchPolicy()) for _ in range(args.reps)],
-           "guaranteed": run(DispatchPolicy(guaranteed=True))}
+    out = {"label": args.label, "tree": str(root)}
+    if not args.fused:
+        out["default"] = [run(DispatchPolicy()) for _ in range(args.reps)]
+        out["guaranteed"] = run(DispatchPolicy(guaranteed=True))
+    else:
+        run(DispatchPolicy(fused=True))     # warm-up of the fused route
+        for key, kw in (("default", {}),
+                        ("guaranteed", {"guaranteed": True})):
+            reps = args.reps if key == "default" else 1
+            for i in range(reps):
+                order = (False, True) if i % 2 == 0 else (True, False)
+                for fused in order:
+                    name = f"fused_{key}" if fused else key
+                    out.setdefault(name, []).append(
+                        run(DispatchPolicy(fused=fused, **kw)))
     print(json.dumps(out), flush=True)
     return 0
 
