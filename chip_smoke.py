@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero:
      ``fused_ot_phases`` at B = 8, 512 x 512) run one k = 8 chunk from a
      state a few stepped phases in, every integer field equal to the
      plain version's and to the stepped core's; times of the chunk
-     launch, the plain version and the stepped ``run_*_phases``;
+     launch, the plain version and the stepped ``run_*_phases``.
+     ``sinkhorn_row_update`` at B = 1, 4096 x 4096 and at B = 8, 1024 x
+     1000 (per-lane reg, ragged blocks, a zero-mass lane, half the lanes
+     marked off by ``active_b``) within its stated tolerance;
   3. ``solve(ASSIGNMENT)`` at the paper's size (Fig. 1: n = 10 000 points
      in the unit square, euclidean, eps = 0.01) under the default policy
      and under ``guaranteed=True``, with their certificates and the
@@ -31,12 +34,21 @@ Phases, in order; any failure exits non-zero:
      ``slack_propose`` launch and no round flag read; the ragged batch of
      phase 5 in lockstep and compact mode against the CPU's stepped
      state;
-  7. one JSON line with every kernel's numbers;
-  8. last line: ``{"ok": true, "device": {...}}``.
+  7. the solver portfolio on phase 4's inputs: ``solver="sinkhorn"``
+     (stepped, then ``fused=True``, which launches ``sinkhorn_row_update``
+     once per f-update), ``"hybrid"`` and ``"auto"`` at n = 4096, each
+     with its certificates and, for Sinkhorn, plan marginals exact to
+     f32; Sinkhorn and hybrid at n = 512 within their bound of scipy's LP
+     optimum; then card against CPU on phase 5's ragged batch (Sinkhorn
+     floats within a stated tolerance; the hybrid finish from the same
+     warm duals with equal integer state);
+  8. one JSON line with every kernel's numbers;
+  9. last line: ``{"ok": true, "device": {...}}``.
 
-Phases 3-4 (the stepped route) and each part of phase 6 (the fused
-route) are driven with the launch counts set to 0 just before and read
-just after; the kernels line gives each kernel's launches on its route.
+Phases 3-4 (the stepped route), each part of phase 6 (the fused route)
+and each solve of phase 7 are driven with the launch counts set to 0 just
+before and read just after; the kernels line gives each kernel's
+launches on its route.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -76,6 +88,8 @@ SIZES = {
     "fused_assignment": (16, 1024, 0.01, 3),
     "fused_ot": (8, 512, 0.02, 2),
     "fused_k": 8,
+    # sinkhorn_row_update, phase 2: (B, m, n)
+    "sinkhorn_row": [(1, 4096, 4096), (8, 1024, 1000)],
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -96,11 +110,16 @@ KERNELS = {
         "src/repro_torch/csrc/fused_ot.cu",
         "src/repro/kernels/fused_phase.py:334 (fused_ot_phases; "
         "_ot_kernel at :230)"),
+    "sinkhorn_row_update": (
+        "src/repro_torch/csrc/sinkhorn_row.cu",
+        "src/repro/kernels/sinkhorn_step.py:50 (sinkhorn_row_update; "
+        "pallas_call at :73)"),
 }
 # the route whose launches the kernels line gives for each kernel
 ROUTE = {"slack_propose": "stepped", "cost_matrix": "stepped",
          "fused_assignment_phases": "fused_assignment",
-         "fused_ot_phases": "fused_ot"}
+         "fused_ot_phases": "fused_ot",
+         "sinkhorn_row_update": "sinkhorn_fused"}
 
 
 def log(*a):
@@ -184,6 +203,9 @@ def main() -> int:
     if not phase_fused_kernels(torch, ops, np.random.default_rng(
             [args.seed, 2]), dev, rows, kernel_rows):
         return fail("a fused kernel disagreed with its plain version")
+    if not phase_sinkhorn_kernel(torch, ops, np.random.default_rng(
+            [args.seed, 3]), dev, rows, kernel_rows):
+        return fail("sinkhorn_row_update disagreed with its plain version")
     log(f"[2] done at {time.monotonic() - t_start:.0f} s")
 
     # -- 3-5: the stepped route, counted --------------------------------
@@ -221,7 +243,14 @@ def main() -> int:
         return fail("the fused route")
     log(f"[6] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 7. kernels line ------------------------------------------------
+    # -- 7. the solver portfolio, counted ---------------------------------
+    if not phase_portfolio(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the solver portfolio")
+    if not phase_portfolio_card_vs_cpu(torch, dev, record, ctx):
+        return fail("the solver portfolio, card against CPU")
+    log(f"[7] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 8. kernels line ------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -241,7 +270,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[7] record written to {args.out}")
+    log(f"[8] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -447,6 +476,7 @@ def phase_ot(torch, rng, dev, record, ctx) -> bool:
             # guaranteed: cost <= OPT + eps * mass * max(c)
             bound = cert["additive_gap_bound"]
             ok &= bool(opt - 1e-6 <= sol.cost <= opt + bound + 1e-6)
+            ctx.setdefault("exact_ot", {})[n] = opt
         log(f"[4] ot {json.dumps(res, default=float)}")
         record["phases"].setdefault("ot", []).append(res)
         ctx["ot"].append(((n, eps, exact), (c, nu, mu), sol.state(), wall))
@@ -763,6 +793,271 @@ def phase_fused(torch, ops, rdev, dev, record, ctx, launches) -> bool:
                and got["fused_ot_phases"] > 0 and got["slack_propose"] == 0
                and syncs["round"] == 0)
     return ok
+
+
+def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
+    """``sinkhorn_row_update`` against its plain version at the shapes of
+    the portfolio's solves: the OT cell of phase 4 (B = 1, 4096 x 4096)
+    and a batch of 8 lanes of 1024 x 1000 with per-lane reg from eps in
+    {0.3, 0.1, 0.05, 0.03}, ragged valid blocks (cost 0 and no mass
+    outside, as the Sinkhorn spec's prepare leaves them) and a zero-mass
+    lane; then the batch again with ``active_b`` marking off the odd
+    lanes, which must get ``f`` back unchanged.
+
+    Tolerance: rtol 1e-5, atol 1e-5 * max|f|. Both sum the same n terms
+    exp(z - max) in another order (32 strided partial sums merged by a
+    butterfly against 128-column tiles) and the card's expf is within 2
+    ulp, so the log-sum differs by a few ulp of its value; f = reg *
+    (log_nu - lse) can cancel, hence the absolute part scaled to max|f|.
+
+    Bound: bytes, c read once (4 B m n) plus g, log_nu, reg and f (4 B (n
+    + 2 m + 1)), over the HBM rate; operations, 4 fp32 operations per
+    element (subtract, scale, exp, accumulate) over the fp32 rate. The
+    library call is the stepped spec's row update, ``reg * (log_nu -
+    torch.logsumexp((g - c) / reg))``."""
+    from repro_torch.kernels.sinkhorn_step import sinkhorn_row_ref
+    from repro_torch.portfolio.sinkhorn_spec import _row_update_torch
+
+    ok_all = True
+    for b, m, n in SIZES["sinkhorn_row"]:
+        c = rng.uniform(size=(b, m, n)).astype(np.float32)
+        nu = rng.dirichlet(np.ones(m), b).astype(np.float32)
+        g = rng.normal(0.0, 0.2, (b, n)).astype(np.float32)
+        if b > 1:
+            for i in range(b):
+                mi, ni = m - 37 * i, n - 53 * i
+                c[i, mi:], c[i, :, ni:], nu[i, mi:] = 0.0, 0.0, 0.0
+            nu[-1] = 0.0
+        nu_hat = nu / np.maximum(nu.sum(1, keepdims=True), 1e-30)
+        log_nu = np.log(np.maximum(nu_hat, 1e-30)).astype(np.float32)
+        eps = np.resize([0.05] if b == 1 else [0.3, 0.1, 0.05, 0.03], b)
+        reg = (eps / (4 * np.log(max(m, n)))).astype(np.float32)
+        c, g, log_nu, reg = (torch.as_tensor(a, device=dev)
+                             for a in (c, g, log_nu, reg))
+        kargs = (c, g, log_nu, reg)
+        got = ops.sinkhorn_row_update(*kargs)
+        ref = sinkhorn_row_ref(*kargs)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        ok = bool(torch.isfinite(got).all() and (
+            (got - ref).abs() <= 1e-5 * scale + 1e-5 * ref.abs()).all())
+        masked_ok = None
+        if b > 1:
+            active = torch.arange(b, device=dev) % 2 == 0
+            f_old = torch.full((b, m), 7.0, device=dev)
+            masked = ops.sinkhorn_row_update(*kargs, active_b=active,
+                                             f=f_old)
+            torch.cuda.synchronize()
+            masked_ok = bool(torch.equal(masked[~active], f_old[~active])
+                             and torch.equal(masked[active], got[active]))
+            ok &= masked_ok
+        ms = cuda_ms(torch, lambda: ops.sinkhorn_row_update(*kargs), reps=20)
+        plain_ms = cuda_ms(torch, lambda: sinkhorn_row_ref(*kargs), reps=3,
+                           warmup=1)
+        library_ms = cuda_ms(torch, lambda: _row_update_torch(*kargs),
+                             reps=10)
+        nbytes = 4 * b * m * n + 4 * b * (n + 2 * m + 1)
+        nops = 4 * b * m * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S
+        row = {"name": "sinkhorn_row_update", "shape": [b, m, n], "ok": ok,
+               "rtol": 1e-5, "atol": 1e-5 * scale, "max_abs_err": err,
+               "max_abs_f": scale, "active_b_ok": masked_ok,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "reg * (log_nu - torch.logsumexp((g - c) / reg))",
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"[2] {json.dumps(row)}")
+        rows.append(row)
+        ok_all &= ok
+        kernel_rows.setdefault("sinkhorn_row_update", row)
+        del c, g, got, ref
+        torch.cuda.empty_cache()
+    return ok_all
+
+
+def _portfolio_certificates(sol, nu, mu, marginals: bool):
+    """Gap, bound, dual feasibility and the plan's marginals (from the
+    sparse plan, summed in float64 on the host)."""
+    gap, bound = sol.additive_gap(), sol.additive_gap_bound()
+    plan = sol.plan_sparse()
+    rows = np.zeros(len(nu))
+    cols = np.zeros(len(mu))
+    np.add.at(rows, plan.rows, plan.vals)
+    np.add.at(cols, plan.cols, plan.vals)
+    res = {"cost": sol.cost, "phases": sol.phases,
+           "additive_gap": gap, "additive_gap_bound": bound,
+           "dual_feasible": sol.dual_feasible(), "plan_nnz": plan.nnz,
+           "row_marginal_err": float(np.abs(rows - nu).max()),
+           "col_marginal_err": float(np.abs(cols - mu).max()),
+           "dispatches": sol.stats.dispatches, "solver": sol.stats.solver,
+           "predicted_s": sol.stats.predicted_s}
+    ok = bool(gap <= bound and res["dual_feasible"] and np.isfinite(sol.cost))
+    if marginals:
+        # AWR rounding puts the plan ON the transport polytope: exact up
+        # to f32 sums (2e-6, the reference's own tolerance)
+        ok &= res["row_marginal_err"] <= 2e-6
+        ok &= res["col_marginal_err"] <= 2e-6
+    return ok, res
+
+
+def phase_portfolio(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The solver portfolio on phase 4's inputs. At n = 4096 (eps = 0.05):
+    Sinkhorn stepped and fused (the row kernel launched once per
+    f-update, and only there), hybrid, and auto (the port's cost-model
+    table when one is committed, else push-relabel), each with its
+    certificates; Sinkhorn plans' marginals exact to f32. At n = 512
+    (``guaranteed=True``): Sinkhorn and hybrid within their bound of
+    scipy's LP optimum."""
+    from repro_torch.core.api import OT, DispatchPolicy, solve
+    from repro_torch.portfolio import get_model, sinkhorn_spec
+
+    ok = True
+    (n, eps, _), (c, nu, mu), _, pr_wall = ctx["ot"][0]
+    runs = [("sinkhorn", "sinkhorn", False), ("sinkhorn_fused", "sinkhorn",
+                                               True),
+            ("hybrid", "hybrid", False), ("auto", "auto", False)]
+    model = get_model()
+    log(f"[7] cost model: "
+        + ("none committed: auto falls back to push-relabel"
+           if model is None else f"{model.mode} table, {model.backend}"))
+    for route, solver, fused in runs:
+        ops.reset_launches()
+        rdev.reset_sync_counts()
+        sinkhorn_spec.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sol = solve(OT, [(c, nu, mu)], eps,
+                    DispatchPolicy(solver=solver, fused=fused),
+                    want=("cost", "duals", "plan_sparse", "stats"),
+                    device=dev)[0]
+        sol.cost
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches[route] = dict(ops.launches)
+        f_updates = sinkhorn_spec.counts["f_updates"]
+        ran = sol.stats.solver
+        cert_ok, cert = _portfolio_certificates(sol, nu, mu,
+                                                ran == "sinkhorn")
+        kernel = launches[route]["sinkhorn_row_update"]
+        if fused:
+            # one launch per f-update, at least one per iteration run
+            route_ok = kernel == f_updates >= sol.phases > 0
+        else:
+            route_ok = kernel == 0
+        if solver == "auto":
+            route_ok &= ran == ("pushrelabel" if model is None else
+                                model.choose(n, eps)[0])
+        res = {"n": n, "eps": eps, "route": route, **cert, "wall_s": wall,
+               "f_updates": f_updates, "syncs": dict(rdev.sync_counts),
+               "launches": launches[route],
+               "pushrelabel_stepped_wall_s": pr_wall, "route_ok": route_ok}
+        log(f"[7] portfolio {json.dumps(res, default=float)}")
+        record["phases"].setdefault("portfolio", []).append(res)
+        ok &= cert_ok and route_ok
+
+    (n, eps, exact), (c, nu, mu), _, pr_wall = ctx["ot"][1]
+    opt = ctx["exact_ot"][n]
+    for solver in ("sinkhorn", "hybrid"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sol = solve(OT, [(c, nu, mu)], eps,
+                    DispatchPolicy(solver=solver, guaranteed=exact),
+                    want=("cost", "duals", "plan_sparse", "stats"),
+                    device=dev)[0]
+        sol.cost
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        cert_ok, cert = _portfolio_certificates(sol, nu, mu,
+                                                solver == "sinkhorn")
+        bound = cert["additive_gap_bound"]
+        exact_ok = bool(opt - 1e-6 <= sol.cost <= opt + bound + 1e-6)
+        res = {"n": n, "eps": eps, "guaranteed": exact, **cert,
+               "exact_cost": opt, "within_bound_of_exact": exact_ok,
+               "wall_s": wall, "pushrelabel_stepped_wall_s": pr_wall}
+        log(f"[7] portfolio exact {json.dumps(res, default=float)}")
+        record["phases"].setdefault("portfolio_exact", []).append(res)
+        ok &= cert_ok and exact_ok
+    return ok
+
+
+def phase_portfolio_card_vs_cpu(torch, dev, record, ctx) -> bool:
+    """Phase 5's ragged OT batch on the card and on the CPU.
+
+    Sinkhorn (compact and lockstep): the card's exp, logsumexp and sums
+    run in another order than the CPU's over a few hundred iterations,
+    which the contraction of the iteration keeps small. Held: iteration
+    counts equal or one apart (a lane whose error crossed tol within f32
+    noise), and where equal, costs within rtol 1e-4 and duals within rtol
+    1e-4, atol 1e-5 * max|y| of the CPU's.
+
+    Hybrid, per instance: the warm duals come from the float stage 1, so
+    the two devices' differ where a potential sits on a rounding boundary.
+    The finish is given the card's warm duals on both devices and its
+    integer state must be equal; the card's hybrid solve must equal that
+    finish. The default policy's gap is held to twice the bound, as in
+    phase 3 (only ``guaranteed=True`` promises the bound itself)."""
+    from repro_torch.core.api import OT, DispatchPolicy, solve
+    from repro_torch.portfolio.hybrid import WARM_OT, warm_duals
+
+    ok = True
+    _, eps, insts_dev, _ = ctx["ragged"]["ot"]
+    insts_cpu = [(c.cpu(), nu, mu) for c, nu, mu in insts_dev]
+    for mode in ("compact", "lockstep"):
+        policy = DispatchPolicy(mode=mode, solver="sinkhorn")
+        want = ("cost", "duals")
+        t0 = time.monotonic()
+        on_card = solve(OT, insts_dev, eps, policy, want=want, device=dev)
+        t1 = time.monotonic()
+        on_cpu = solve(OT, insts_cpu, eps, policy, want=want, device="cpu")
+        t2 = time.monotonic()
+        good, worst = True, {"cost_rel": 0.0, "dual_abs": 0.0}
+        phases = []
+        for a, b in zip(on_card, on_cpu):
+            phases.append((a.phases, b.phases))
+            good &= abs(a.phases - b.phases) <= 1
+            if a.phases != b.phases:
+                continue
+            rel = abs(a.cost - b.cost) / max(abs(b.cost), 1e-30)
+            worst["cost_rel"] = max(worst["cost_rel"], rel)
+            good &= rel <= 1e-4
+            for x, y in zip(a.duals(), b.duals()):
+                d = np.abs(x - y)
+                worst["dual_abs"] = max(worst["dual_abs"], float(d.max()))
+                good &= bool((d <= 1e-4 * np.abs(y) + 1e-5
+                              * np.abs(y).max()).all())
+        res = {"solver": "sinkhorn", "mode": mode, "eps": eps,
+               "phases_card_cpu": phases, **worst, "ok": good,
+               "card_s": t1 - t0, "cpu_s": t2 - t1}
+        log(f"[7] card vs cpu {json.dumps(res, default=float)}")
+        record["phases"].setdefault("portfolio_card_vs_cpu", []).append(res)
+        ok &= good
+
+    diffs, phases = [], []
+    t0 = time.monotonic()
+    for c, nu, mu in insts_dev:
+        one = {"c": c[None], "nu": torch.as_tensor(nu, device=dev)[None],
+               "mu": torch.as_tensor(mu, device=dev)[None]}
+        sol = solve(OT, one, eps, DispatchPolicy(solver="hybrid"),
+                    want=("cost", "duals", "state"), device=dev)[0]
+        y_b0, _ = warm_duals(WARM_OT.canonicalize(one, dev), eps,
+                             device=dev)
+        card, cpu = (solve(WARM_OT, {k: v.to(where) for k, v in one.items()},
+                           eps, DispatchPolicy(), want=("cost", "state"),
+                           device=where, y_b0=y_b0.to(where))[0]
+                     for where in (dev, torch.device("cpu")))
+        diffs.append(_state_diff(card.state(), cpu.state())
+                     + [f"hybrid:{f}" for f in _state_diff(sol.state(),
+                                                           card.state())])
+        phases.append(sol.phases)
+        ok &= bool(sol.dual_feasible()
+                   and sol.additive_gap() <= 2 * sol.additive_gap_bound())
+    res = {"solver": "hybrid", "eps": eps, "state_differs": diffs,
+           "phases": phases,
+           "card_s": time.monotonic() - t0}
+    log(f"[7] card vs cpu {json.dumps(res, default=float)}")
+    record["phases"].setdefault("portfolio_card_vs_cpu", []).append(res)
+    return ok and not any(diffs)
 
 
 if __name__ == "__main__":

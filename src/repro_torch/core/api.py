@@ -16,6 +16,12 @@ round; ``DispatchPolicy(fused=True)`` swaps the spec for its fused variant
 (``FUSED_ASSIGNMENT`` / ``FUSED_OT``), which runs a whole k-phase chunk in
 one launch of the fused kernel, with the same results bit for bit.
 
+``DispatchPolicy(solver=...)`` picks the algorithm for OT batches from the
+solver portfolio (``repro_torch.portfolio``): push-relabel (the default),
+log-domain Sinkhorn (``SINKHORN``; with ``fused=True`` its f-update is the
+``sinkhorn_row_update`` kernel), the hybrid Sinkhorn -> push-relabel warm
+start, or "auto", routed per bucket by the measured cost model.
+
 ``want=`` (artifact names, also settable on the policy) returns the typed
 Solution surface (``core/solution.py``): a ``SolutionBatch`` for the dict
 form, a list of per-instance ``Solution`` views for the ragged form. With
@@ -24,7 +30,7 @@ dict form, per-instance dicts for the ragged form.
 
 Paths of the reference this slice of the port does not have yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them:
-``mode="mesh"``, ``solver != "pushrelabel"`` and ``validate=True``.
+``mode="mesh"`` and ``validate=True``.
 """
 from __future__ import annotations
 
@@ -68,9 +74,19 @@ class DispatchPolicy:
       want: artifacts of the typed Solution surface; None keeps the
         legacy return surface. ``solve(..., want=...)`` overrides it.
       fused: run each chunk as one launch of the fused kernel
-        (``FUSED_ASSIGNMENT`` / ``FUSED_OT``); same results.
-      validate, solver: not ported yet; only the defaults (False,
-        "pushrelabel") are accepted.
+        (``FUSED_ASSIGNMENT`` / ``FUSED_OT``); same results. With
+        ``solver="sinkhorn"``, every f-update launches the
+        ``sinkhorn_row_update`` kernel (``SINKHORN_KERNEL``).
+      solver: the algorithm for OT-family batches: "pushrelabel" (the
+        paper's solver, guaranteed at every eps), "sinkhorn" (log-domain,
+        AWR schedule, the same additive-eps certificate), "hybrid" (coarse
+        Sinkhorn duals warm-start the push-relabel finish, keeping its
+        guarantee) or "auto" (routed per bucket by the measured cost model,
+        ``repro_torch.portfolio.costmodel``; deterministic for a loaded
+        table, so "auto" equals naming its choice). Assignment batches
+        ignore it. The chosen solver and the prediction land in
+        ``SolveStats``.
+      validate: not ported yet; only the default (False) is accepted.
     """
     mode: str = "auto"
     mesh: Any = None
@@ -96,10 +112,6 @@ class DispatchPolicy:
             raise NotImplementedError(
                 "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
                 "11, multi-device)")
-        if self.solver != "pushrelabel":
-            raise NotImplementedError(
-                f"solver={self.solver!r} is not ported yet (ROADMAP.md "
-                "Queue 1 item 8, portfolio)")
         if self.validate:
             raise NotImplementedError(
                 "validate=True is not ported yet (ROADMAP.md Queue 1 item "
@@ -109,23 +121,70 @@ class DispatchPolicy:
         return "compact" if self.mode == "auto" else self.mode
 
 
+def _resolve_solver(spec, policy: DispatchPolicy, inputs, eps):
+    """(solver name, dispatch spec, predicted per-instance seconds) for ONE
+    pre-batched bucket. Deterministic and side-effect free: ``solve``
+    calls it again to pick the spec that wraps the result, and an "auto"
+    dispatch equals naming its choice. Only the OT family reroutes;
+    assignment (and specs already rerouted, like the hybrid finish) pass
+    through as push-relabel. The shape comes from the tensor: nothing is
+    copied to the host."""
+    base = getattr(spec, "stepped", spec)
+    if policy.solver == "pushrelabel" or base is not OT:
+        return "pushrelabel", spec, None
+    from .. import portfolio
+
+    solver = policy.solver
+    n_eff = int(max(inputs["c"].shape[1:]))
+    eps_min = float(np.min(np.asarray(eps, np.float64)))
+    if solver == "auto":
+        solver, predicted = portfolio.choose(n_eff, eps_min)
+    else:
+        model = portfolio.get_model()
+        predicted = (None if model is None
+                     else model.predict(solver, n_eff, eps_min))
+    if solver == "sinkhorn":
+        # the stepped spec here; policy.fused upgrades it to the row
+        # kernel's spec downstream through fused_variant
+        return "sinkhorn", portfolio.SINKHORN, predicted
+    return solver, spec, predicted
+
+
 def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
              policy: Optional[DispatchPolicy] = None,
              keep_state: bool = False, obs=None, device=None, **prep_kw):
     """Solve ONE pre-batched bucket (dict of (B, ...) operands) under
     ``policy`` on ``device`` (default CUDA). Returns ``(result, stats)``:
     ``stats`` is None for plain lockstep, a CompactionStats for compact
-    (and for lockstep with ``keep_state``), with the dispatch wall time
-    as ``solve_s``."""
+    (and for lockstep with ``keep_state``).
+
+    ``policy.solver`` routes the bucket through the solver portfolio; the
+    chosen solver, the cost model's prediction and the dispatch wall time
+    are set on the stats (``solver`` / ``predicted_s`` / ``solve_s``) and
+    sent to ``obs`` as a ``"solver-choice"`` event."""
     policy = policy or DispatchPolicy()
     dev = resolve_device(device)
     inputs = spec.canonicalize(inputs, dev)
+    solver, spec, predicted = _resolve_solver(spec, policy, inputs, eps)
     t0 = _now()
-    r, stats = _dispatch_one(spec, inputs, eps, sizes=sizes, policy=policy,
-                             keep_state=keep_state, obs=obs, device=dev,
-                             **prep_kw)
+    if solver == "hybrid":
+        from ..portfolio.hybrid import dispatch_hybrid
+
+        r, stats = dispatch_hybrid(inputs, eps, sizes=sizes, policy=policy,
+                                   keep_state=keep_state, obs=obs,
+                                   device=dev, **prep_kw)
+    else:
+        r, stats = _dispatch_one(spec, inputs, eps, sizes=sizes,
+                                 policy=policy, keep_state=keep_state,
+                                 obs=obs, device=dev, **prep_kw)
+    solve_s = _now() - t0
     if stats is not None:
-        stats.solve_s = _now() - t0
+        stats.solve_s = solve_s
+        stats.solver = solver
+        stats.predicted_s = predicted
+    if obs is not None:
+        obs.event("solver-choice", solver=solver, predicted_s=predicted,
+                  solve_s=solve_s)
     return r, stats
 
 
@@ -157,15 +216,17 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
 
 def _wrap_solution(spec, inputs: Dict[str, Any], eps, policy: DispatchPolicy,
                    r, stats, *, sizes, want: Optional[Tuple[str, ...]],
-                   bucket: Optional[Tuple[int, int]] = None
-                   ) -> SolutionBatch:
+                   bucket: Optional[Tuple[int, int]] = None,
+                   solver: str = "pushrelabel",
+                   predicted: Optional[float] = None) -> SolutionBatch:
     """Wrap one dispatched bucket in a SolutionBatch; the tensors stay on
     the device until an artifact is fetched."""
     b = int(spec.batch_shape(inputs)[0])
     eps_user = np.broadcast_to(np.asarray(eps, np.float64), (b,)).copy()
     eps_internal = eps_user / 3.0 if policy.guaranteed else eps_user
     sstats = SolveStats.from_driver(stats, mode=policy.resolved_mode(),
-                                    batch=b, bucket=bucket)
+                                    batch=b, bucket=bucket, solver=solver,
+                                    predicted_s=predicted)
     state = getattr(stats, "final_state", None) if stats is not None else None
     return SolutionBatch(
         spec, r, stats=sstats, driver_stats=stats, inputs=inputs,
@@ -219,8 +280,14 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
                             **prep_kw)
         if want is None:
             return r, stats
-        return _wrap_solution(spec, inputs, eps, policy, r, stats,
-                              sizes=sizes, want=want)
+        # re-resolve (deterministic) to wrap with the spec that produced r:
+        # SINKHORN's result for sinkhorn routing, OT for the hybrid (its
+        # finish is a push-relabel solve)
+        solver, wspec, predicted = _resolve_solver(spec, policy, inputs,
+                                                   eps)
+        return _wrap_solution(wspec, inputs, eps, policy, r, stats,
+                              sizes=sizes, want=want, solver=solver,
+                              predicted=predicted)
     sols = _solve_ragged(spec, list(instances), eps, policy,
                          keep_state=keep_state, want=want, obs=obs,
                          device=dev, **prep_kw)
@@ -264,9 +331,14 @@ def _solve_ragged(spec, instances: list, eps, policy: DispatchPolicy, *,
             r, stats = dispatch(spec, inputs, eps_arr[idx], sizes=sz,
                                 policy=policy, keep_state=keep_state,
                                 obs=obs, device=device, **prep_kw)
-            batch = _wrap_solution(spec, inputs, eps_arr[idx], policy, r,
+            # per-bucket re-resolution ("auto" may route buckets to
+            # different solvers); deterministic, so it matches dispatch
+            solver, wspec, predicted = _resolve_solver(spec, policy, inputs,
+                                                       eps_arr[idx])
+            batch = _wrap_solution(wspec, inputs, eps_arr[idx], policy, r,
                                    stats, sizes=sz, want=want,
-                                   bucket=grp.key)
+                                   bucket=grp.key, solver=solver,
+                                   predicted=predicted)
             # per-instance views share the batch's tensors and fetch cache
             for j, i in enumerate(idx):
                 results[i] = batch[j]

@@ -49,7 +49,11 @@ class CompactionStats:
     # final integer state (trimmed to the real batch), kept only with
     # keep_state=True for the feasibility certificates
     final_state: Optional[Any] = None
-    solve_s: Optional[float] = None  # dispatch wall seconds (api.dispatch)
+    # set by api.dispatch: dispatch wall seconds, the solver that ran and
+    # the cost model's prediction for it
+    solve_s: Optional[float] = None
+    solver: str = "pushrelabel"
+    predicted_s: Optional[float] = None
 
     def as_dict(self) -> dict:
         return {

@@ -7,15 +7,15 @@ raises, and only an explicit ``device="cpu"`` runs on the CPU.
 
 Each device->host read that steers a Python loop goes through
 :func:`host_flags` / :func:`host_numpy`, which count it under a kind
-("round", "chunk") in ``sync_counts`` so a run can report how often it
-waited on the device.
+("round", "chunk", "sinkhorn") in ``sync_counts`` so a run can report how
+often it waited on the device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-sync_counts = {"round": 0, "chunk": 0}
+sync_counts = {"round": 0, "chunk": 0, "sinkhorn": 0}
 
 
 def resolve_device(device=None) -> torch.device:

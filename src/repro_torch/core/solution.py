@@ -51,22 +51,28 @@ class SolveStats:
     dispatches: int = 1
     chunk: Optional[int] = None
     occupancy: Tuple[Tuple[int, int], ...] = ()
-    actual_s: Optional[float] = None   # dispatch wall seconds
+    # solver-portfolio accounting (core/api records these when
+    # DispatchPolicy.solver routes away from the default)
+    solver: str = "pushrelabel"    # solver that produced this result
+    predicted_s: Optional[float] = None  # cost-model per-batch prediction
+    actual_s: Optional[float] = None     # dispatch wall seconds
 
     @classmethod
     def from_driver(cls, st: Any, *, mode: str, batch: int,
-                    bucket: Optional[Tuple[int, int]] = None
-                    ) -> "SolveStats":
+                    bucket: Optional[Tuple[int, int]] = None,
+                    solver: str = "pushrelabel",
+                    predicted_s: Optional[float] = None) -> "SolveStats":
         """Fold a driver stats object (CompactionStats, or None for the
         plain lockstep path) into the uniform surface."""
         if st is None:
-            return cls(mode=mode, batch=batch, bucket=bucket)
+            return cls(mode=mode, batch=batch, bucket=bucket, solver=solver,
+                       predicted_s=predicted_s)
         return cls(
             mode=mode, batch=batch, bucket=bucket,
             dispatches=int(st.dispatches) or 1,
             chunk=int(st.chunk) if st.chunk else None,
             occupancy=tuple(tuple(o) for o in st.occupancy),
-            actual_s=st.solve_s,
+            solver=solver, predicted_s=predicted_s, actual_s=st.solve_s,
         )
 
     def as_dict(self) -> Dict[str, Any]:
@@ -74,6 +80,7 @@ class SolveStats:
             "mode": self.mode, "batch": self.batch, "bucket": self.bucket,
             "dispatches": self.dispatches, "chunk": self.chunk,
             "occupancy": [list(o) for o in self.occupancy],
+            "solver": self.solver, "predicted_s": self.predicted_s,
             "actual_s": self.actual_s,
         }
 

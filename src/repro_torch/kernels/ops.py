@@ -28,6 +28,7 @@ import torch
 
 from . import cost_matrix as _cm
 from . import fused_phase as _fp
+from . import sinkhorn_step as _ss
 from . import slack_propose as _sp
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -48,6 +49,8 @@ _ENTRY = {
                                 [_P] * 19 + [_I] * 5 + [_P]),
     "fused_ot_phases": ("fused_ot.cu", "fused_ot_launch",
                         [_P] * 20 + [_I] * 6 + [_P]),
+    "sinkhorn_row_update": ("sinkhorn_row.cu", "sinkhorn_row_launch",
+                            [_P] * 7 + [_I] * 4 + [_P]),
 }
 # kernel name -> C function giving its workspace in bytes for (B, m, n)
 _WORKSPACE = {
@@ -326,3 +329,38 @@ def fused_run_ot_phases(c_int, state, threshold, phase_cap, k: int,
             ws.data_ptr(), b, nb, na, int(k), int(max_rounds), vec,
             _stream(dev))
     return type(state)(*out)
+
+
+def sinkhorn_row_update(c, g, log_nu, reg, *, active_b=None, f=None):
+    """Batched log-domain Sinkhorn f-update: ``c`` (B, m, n) f32, ``g``
+    (B, n), ``log_nu`` (B, m), ``reg`` (B,) f32 -> (B, m) f32 with
+    ``f[b, i] = reg[b] * (log_nu[b, i] - LSE_j((g[b, j] - c[b, i, j]) /
+    reg[b]))``; see ``kernels/sinkhorn_step.py``. ``active_b`` (B,) bool
+    marks the lanes to update; the others get ``f`` (B, m), their current
+    potentials, back unchanged (so ``f`` is required with ``active_b``),
+    and the kernel reads none of their costs."""
+    b, m, n = c.shape
+    if active_b is not None and f is None:
+        raise ValueError("sinkhorn_row_update: active_b needs f, the "
+                         "potentials the inactive lanes keep")
+    if not _on_cuda(c):
+        out = _ss.sinkhorn_row_ref(c, g, log_nu, reg)
+        return out if active_b is None else torch.where(
+            active_b[:, None], out, f)
+    dev = c.device
+    _check("c", c, torch.float32, (b, m, n), dev)
+    _check("g", g, torch.float32, (b, n), dev)
+    _check("log_nu", log_nu, torch.float32, (b, m), dev)
+    _check("reg", reg, torch.float32, (b,), dev)
+    if active_b is not None:
+        _check("active_b", active_b, torch.bool, (b,), dev)
+        _check("f", f, torch.float32, (b, m), dev)
+    out = torch.empty((b, m), dtype=torch.float32, device=dev)
+    vec = int(n % 4 == 0 and c.data_ptr() % 16 == 0
+              and g.data_ptr() % 16 == 0)
+    _launch("sinkhorn_row_update", c.data_ptr(), g.data_ptr(),
+            log_nu.data_ptr(), reg.data_ptr(),
+            0 if active_b is None else active_b.data_ptr(),
+            0 if f is None else f.data_ptr(), out.data_ptr(), b, m, n, vec,
+            _stream(dev))
+    return out

@@ -143,8 +143,7 @@ def test_want_gating_and_validation():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mode="mesh"), "item 11"), (dict(mesh=object()), "item 11"),
-    (dict(solver="sinkhorn"), "item 8"),
-    (dict(solver="auto"), "item 8"), (dict(validate=True), "item 7"),
+    (dict(validate=True), "item 7"),
 ])
 def test_unported_policies_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -197,12 +196,15 @@ def test_obs_events_and_sync_counts():
     _, stats = tapi.solve(tapi.ASSIGNMENT, inputs, 0.1, sizes=sizes,
                           obs=rec, device="cpu")
     names = [n for n, _ in rec.events]
-    assert names == ["chunk"] * stats.dispatches
+    # one event per chunk, then the dispatch's solver choice
+    assert names == ["chunk"] * stats.dispatches + ["solver-choice"]
+    assert rec.events[-1][1]["solver"] == "pushrelabel"
     # exactly one converged-mask read per chunk; the phase loop reads
     # nothing of its own (its stop flag comes with the first round's read)
     assert device.sync_counts["chunk"] == stats.dispatches
-    assert set(device.sync_counts) == {"round", "chunk"}
+    assert set(device.sync_counts) == {"round", "chunk", "sinkhorn"}
     assert device.sync_counts["round"] > 0
+    assert device.sync_counts["sinkhorn"] == 0
 
 
 def test_batched_wrappers_equal_reference():

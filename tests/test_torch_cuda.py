@@ -242,3 +242,120 @@ def test_fused_solve_on_card_equals_stepped_cpu(dev, name, mode):
                 want=("cost", "state"), device="cpu")
     for a, b in zip(card, cpu):
         assert _states_equal(a.state(), b.state())
+
+
+def _sinkhorn_row_inputs(dev, b, m, n, seed):
+    """Per-lane reg from eps in {0.3, 0.1, 0.05, 0.03}, ragged valid blocks
+    (cost 0 and zero mass outside), the last lane with zero mass."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(size=(b, m, n)).astype(np.float32)
+    nu = rng.dirichlet(np.ones(m), b).astype(np.float32)
+    g = rng.normal(0.0, 0.2, (b, n)).astype(np.float32)
+    for i in range(b):
+        mi, ni = max(m - 7 * i, 1), max(n - 11 * i, 1)
+        c[i, mi:], c[i, :, ni:], nu[i, mi:] = 0.0, 0.0, 0.0
+    nu[-1] = 0.0
+    nu_hat = nu / np.maximum(nu.sum(1, keepdims=True), 1e-30)
+    log_nu = np.log(np.maximum(nu_hat, 1e-30)).astype(np.float32)
+    eps = np.resize([0.3, 0.1, 0.05, 0.03], b)
+    reg = (eps / (4 * np.log(max(m, n)))).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (c, g, log_nu, reg)]
+
+
+def _assert_rows_close(got, ref):
+    """The kernel and the plain version sum the same terms in another
+    order (and with the card's expf): rtol 1e-5, atol 1e-5 * max|f|."""
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n", [(1, 300, 1000), (3, 257, 130),
+                                   (8, 64, 1000), (2, 5, 3)])
+def test_sinkhorn_row_kernel_equals_plain(dev, b, m, n):
+    """16-byte and scalar paths (n % 4 != 0), B > 1 with per-lane reg, a
+    zero-mass lane; with ``active_b`` the marked-off lanes keep ``f``."""
+    from repro_torch.kernels.sinkhorn_step import sinkhorn_row_ref
+
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, b, m, n, b * m + n)
+    before = ops.launches["sinkhorn_row_update"]
+    got = ops.sinkhorn_row_update(c, g, log_nu, reg)
+    assert ops.launches["sinkhorn_row_update"] == before + 1
+    ref = sinkhorn_row_ref(c, g, log_nu, reg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_rows_close(got, ref)
+    active = torch.arange(b, device=dev) % 2 == 0
+    f_old = torch.full((b, m), 7.0, device=dev)
+    masked = ops.sinkhorn_row_update(c, g, log_nu, reg, active_b=active,
+                                     f=f_old)
+    torch.cuda.synchronize()
+    assert torch.equal(masked[~active], f_old[~active])
+    _assert_rows_close(masked[active], ref[active])
+
+
+@pytest.mark.cuda
+def test_sinkhorn_row_misaligned_view_takes_scalar_path(dev):
+    from repro_torch.kernels.sinkhorn_step import sinkhorn_row_ref
+
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, 2, 17, 64, 9)
+    c1 = torch.cat([c.flatten(), c.flatten()[:1]])[1:].view(2, 17, 64)
+    _assert_rows_close(ops.sinkhorn_row_update(c1, g, log_nu, reg),
+                       sinkhorn_row_ref(c1, g, log_nu, reg))
+
+
+@pytest.mark.cuda
+def test_sinkhorn_row_wrapper_refuses_bad_operands(dev):
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, 2, 8, 12, 1)
+    with pytest.raises(TypeError):
+        ops.sinkhorn_row_update(c.double(), g, log_nu, reg)
+    with pytest.raises(ValueError):
+        ops.sinkhorn_row_update(c.transpose(1, 2).contiguous(), g, log_nu,
+                                reg)
+    with pytest.raises(ValueError):
+        ops.sinkhorn_row_update(c, g, log_nu, reg.cpu())
+    with pytest.raises(ValueError):
+        ops.sinkhorn_row_update(c[:, :, ::2], g[:, ::2], log_nu, reg)
+    with pytest.raises(ValueError):
+        ops.sinkhorn_row_update(c, g, log_nu, reg[:1])
+    with pytest.raises(ValueError):
+        ops.sinkhorn_row_update(c, g, log_nu, reg,
+                                active_b=torch.ones(2, dtype=torch.bool,
+                                                    device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_sinkhorn_solve_on_card_equals_cpu(dev, fused):
+    """solve(..., solver="sinkhorn") on the card against the CPU: the
+    card's exp, logsumexp and sums run in another order over hundreds of
+    iterations, which the contraction of the iteration keeps small: costs
+    and duals within rtol 1e-4, atol 1e-5 * scale, iteration counts equal
+    or one apart where the error crossed tol within f32 noise. With
+    ``fused=True`` every f-update launches the row kernel."""
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.portfolio import sinkhorn_spec
+
+    rng = np.random.default_rng(5)
+    insts = []
+    for n in (20, 45, 64):
+        insts.append((rng.uniform(size=(n, n)).astype(np.float32),
+                      rng.dirichlet(np.ones(n)).astype(np.float32),
+                      rng.dirichlet(np.ones(n)).astype(np.float32)))
+    policy = DispatchPolicy(solver="sinkhorn", fused=fused)
+    ops.reset_launches()
+    sinkhorn_spec.reset_counts()
+    card = solve(OT, insts, 0.1, policy, want=("cost", "duals"), device=dev)
+    launched = ops.launches["sinkhorn_row_update"]
+    assert launched == (sinkhorn_spec.counts["f_updates"] if fused else 0)
+    cpu = solve(OT, insts, 0.1, policy, want=("cost", "duals"), device="cpu")
+    for a, b in zip(card, cpu):
+        assert abs(a.phases - b.phases) <= 1
+        assert a.dual_feasible() and a.additive_gap() <= \
+            a.additive_gap_bound()
+        if a.phases != b.phases:
+            continue
+        scale = float(np.abs(b.duals()[0]).max())
+        np.testing.assert_allclose(a.cost, b.cost, rtol=1e-4)
+        for x, y in zip(a.duals(), b.duals()):
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5 * scale)

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one ``solve`` goes on the card (PyTorch profiler).
 
-    python3 tools/profile_solve.py [--seed 0] [--fused]
+    python3 tools/profile_solve.py [--seed 0] [--fused] [--portfolio]
                                    [--out build/profile.json]
 
 Solves the Fig. 1 assignment (n = 10 000 points, eps = 0.01) and the
 n = 4096 OT instance of ``chip_smoke.py`` once to warm up, then once more
 under ``torch.profiler``; with ``--fused`` it does the same on the fused
 route (``DispatchPolicy(fused=True)``) after each stepped case, on the
-same inputs, so both routes are measured in one call on one card. It
+same inputs, so both routes are measured in one call on one card; with
+``--portfolio`` it also profiles the OT instance under
+``solver="sinkhorn"`` (stepped and fused) and ``solver="hybrid"``. It
 reports for each: wall time (with the
 profiler on, which slows the host side), the summed device time of every
 kernel, their share of that wall time (the card's busy share; the rest is
@@ -70,6 +72,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fused", action="store_true",
                     help="also profile the fused route on the same inputs")
+    ap.add_argument("--portfolio", action="store_true",
+                    help="also profile the OT instance under the Sinkhorn "
+                         "(stepped and fused) and hybrid solvers")
     ap.add_argument("--out", default="build/profile.json")
     args = ap.parse_args()
     root = Path(__file__).resolve().parents[1]
@@ -98,8 +103,9 @@ def main() -> int:
         return {"phases": s.phases, "rounds": s.rounds,
                 "dispatches": s.stats.dispatches}
 
-    def ot(fused):
-        s = solve(OT, [(c_o, nu, mu)], 0.05, DispatchPolicy(fused=fused),
+    def ot(fused, solver="pushrelabel"):
+        s = solve(OT, [(c_o, nu, mu)], 0.05,
+                  DispatchPolicy(fused=fused, solver=solver),
                   want=("cost",), device=dev)[0]
         return {"phases": s.phases, "rounds": s.rounds,
                 "dispatches": s.stats.dispatches}
@@ -117,6 +123,13 @@ def main() -> int:
             cases.append(profile_case(
                 torch, f"{label} {'fused' if fused else 'stepped'}",
                 lambda fn=fn, fused=fused: fn(fused)))
+    if args.portfolio:
+        for solver, fused in (("sinkhorn", False), ("sinkhorn", True),
+                              ("hybrid", False)):
+            cases.append(profile_case(
+                torch, f"ot n=4096 eps=0.05 {solver}"
+                + (" fused" if fused else ""),
+                lambda solver=solver, fused=fused: ot(fused, solver)))
     res = {"card": smi, "torch": torch.__version__, "cases": cases}
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
