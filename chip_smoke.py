@@ -16,6 +16,10 @@ Phases, in order; any failure exits non-zero:
      state a few stepped phases in, every integer field equal to the
      plain version's and to the stepped core's; times of the chunk
      launch, the plain version and the stepped ``run_*_phases``.
+     ``fused_assignment_phases`` also at full width: B = 1 on phase 3's
+     Fig. 1 costs, one k = 8 chunk from phase 280 of that solve (reached
+     on the fused route), against the plain version and the stepped
+     core;
      ``sinkhorn_row_update`` at B = 1, 4096 x 4096 and at B = 8, 1024 x
      1000 (per-lane reg, ragged blocks, a zero-mass lane, half the lanes
      marked off by ``active_b``) within its stated tolerance;
@@ -56,6 +60,7 @@ is run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -86,6 +91,8 @@ SIZES = {
     "assignment_exact": (2048, 0.05),                   # (n, eps)
     # fused kernels, phase 2: (B, n, eps, stepped phases before the chunk)
     "fused_assignment": (16, 1024, 0.01, 3),
+    # (n, eps, phase the chunk starts at), on phase 3's Fig. 1 costs
+    "fused_assignment_full": (10_000, 0.01, 280),
     "fused_ot": (8, 512, 0.02, 2),
     "fused_k": 8,
     # sinkhorn_row_update, phase 2: (B, m, n)
@@ -199,9 +206,11 @@ def main() -> int:
     record["phases"]["kernels"] = rows = []
     if not phase_kernels(torch, ops, rng, dev, rows, kernel_rows):
         return fail("a kernel disagreed with its plain version")
-    # its own generator, so phases 3-5 draw the inputs they always drew
+    # its own generator, so phases 3-5 draw the inputs they always drew;
+    # a copy of the main one draws phase 3's Fig. 1 points
     if not phase_fused_kernels(torch, ops, np.random.default_rng(
-            [args.seed, 2]), dev, rows, kernel_rows):
+            [args.seed, 2]), dev, rows, kernel_rows,
+            fig1_rng=copy.deepcopy(rng)):
         return fail("a fused kernel disagreed with its plain version")
     if not phase_sinkhorn_kernel(torch, ops, np.random.default_rng(
             [args.seed, 3]), dev, rows, kernel_rows):
@@ -553,13 +562,15 @@ def phase_card_vs_cpu(torch, rng, dev, record, ctx) -> bool:
 
 
 def _count_scanned(ops, run):
-    """Run ``run()`` with ``slack_propose`` counting the (row, column)
-    elements its active rows read; returns (elements, run's result)."""
-    seen = [0]
+    """Run ``run()`` with ``slack_propose`` counting what its active rows
+    read; returns (elements read, distinct (lane, row) pairs read, run's
+    result)."""
+    seen, rows = [0], [None]
     orig = ops.slack_propose_batched
 
     def counting(c_int, *a, active_b=None):
         seen[0] += int(active_b.sum()) * int(c_int.shape[2])
+        rows[0] = active_b if rows[0] is None else rows[0] | active_b
         return orig(c_int, *a, active_b=active_b)
 
     ops.slack_propose_batched = counting
@@ -567,20 +578,21 @@ def _count_scanned(ops, run):
         out = run()
     finally:
         ops.slack_propose_batched = orig
-    return seen[0], out
+    return seen[0], 0 if rows[0] is None else int(rows[0].sum()), out
 
 
 def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
-               c_int, k):
+               c_int, k, plain_reps=3):
     """One fused kernel against its plain version and the stepped core on
-    the same state and k: equality, times and the bound. The bound counts
-    what this chunk needs: c_int read once on the lanes that took a phase,
-    the state read and written once, and 3 int32 operations (add,
-    compare, select) per element the propose steps read, as the stepped
-    run's ``slack_propose`` calls count them."""
+    the same state and k: equality, times and the bound. The work depends
+    on the data, so the bound counts what this chunk needs, as the stepped
+    run's ``slack_propose`` calls show it (they are the only reads of
+    c_int): each row of c_int that a propose step reads, read once; the
+    state read and written once; and 3 int32 operations (add, compare,
+    select) per element the propose steps read."""
     got = kernel()
     ref = plain()
-    scanned, step = _count_scanned(ops, stepped)
+    scanned, rows_read, step = _count_scanned(ops, stepped)
     torch.cuda.synchronize()
     diff_plain = _state_diff(got, ref)
     diff_stepped = _state_diff(got, step)
@@ -589,12 +601,11 @@ def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
                    - getattr(ref, f).cpu().long()).abs().max())
               for f in got._fields)
     ms = cuda_ms(torch, kernel, reps=10)
-    plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+    plain_ms = cuda_ms(torch, plain, reps=plain_reps, warmup=1)
     stepped_ms = cuda_ms(torch, stepped, reps=3, warmup=1)
-    ran = int((got.phases > state0.phases).sum())
-    per_lane = c_int[0].numel() * 4
+    rounds = (got.rounds - state0.rounds).tolist()
     state_bytes = sum(t.numel() * 4 for t in state0)
-    nbytes = ran * per_lane + 2 * state_bytes
+    nbytes = rows_read * c_int.shape[2] * 4 + 2 * state_bytes
     nops = 3 * scanned
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / INT32_OP_PER_S
     row = {"name": name, "shape": list(shape), "k": k, "ok": ok,
@@ -603,21 +614,86 @@ def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
            "ms": ms, "plain_ms": plain_ms, "stepped_ms": stepped_ms,
            "library_ms": None, "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bound_bytes": nbytes, "bound_ops": nops,
-           "lanes_ran": ran,
+           "bound_bytes": nbytes, "bound_ops": nops, "rows_read": rows_read,
            "phases": (got.phases - state0.phases).tolist(),
-           "rounds": (got.rounds - state0.rounds).tolist()}
+           "rounds": rounds, "ms_per_round": ms / max(max(rounds), 1)}
     return row
 
 
-def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
-    """Each fused kernel for one k = 8 chunk from a state a few stepped
-    phases in: Fig. 1-like point clouds (B lanes of n uniform points,
-    euclidean), and Dirichlet masses for OT."""
+def fused_assignment_chunk(torch, rng, dev):
+    """Phase 2's ``fused_assignment_phases`` chunk: B lanes of Fig. 1-like
+    costs (n uniform points each side, euclidean) a few stepped phases in
+    (``SIZES["fused_assignment"]``). Returns ``(c_int, state, threshold,
+    phase_cap, m_valid)``; ``tools/fused_chunk_split.py`` times the same
+    chunk."""
     from repro_torch.core.costs import build_cost_matrix
     from repro_torch.core.pushrelabel import (
         _max_phases, assignment_prologue, init_assignment_state,
         run_assignment_phases)
+
+    b, n, eps, warm = SIZES["fused_assignment"]
+    i32 = torch.int32
+    c = torch.stack([build_cost_matrix(
+        _points(rng, n), _points(rng, n), "euclidean", device=dev)
+        for _ in range(b)])
+    _, c_int, _, _, _ = assignment_prologue(
+        c, torch.full((b,), eps, dtype=torch.float32, device=dev))
+    thr = torch.full((b,), int(eps * n), dtype=i32, device=dev)
+    cap = torch.full((b,), _max_phases(eps, n), dtype=i32, device=dev)
+    mv = torch.full((b,), n, dtype=i32, device=dev)
+    s0 = run_assignment_phases(c_int, init_assignment_state(b, n, n, dev),
+                               thr, cap, warm)
+    return c_int, s0, thr, cap, mv
+
+
+def fused_assignment_full_chunk(torch, ops, rng, dev):
+    """The same chunk at the Fig. 1 size: B = 1 on the costs of phase 3
+    (``rng`` is the generator phase 3 draws its points from, see
+    ``fig1_generator``), from phase ``SIZES["fused_assignment_full"][2]``
+    of the default policy's solve, where few rows are still free; the
+    state is reached by k = 8 fused chunks, as ``solve(..., fused=True)``
+    would reach it."""
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.pushrelabel import (
+        _max_phases, assignment_prologue, init_assignment_state)
+
+    n, eps, start = SIZES["fused_assignment_full"]
+    i32 = torch.int32
+    c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
+                          device=dev)[None]
+    _, c_int, _, _, _ = assignment_prologue(
+        c, torch.full((1,), eps, dtype=torch.float32, device=dev))
+    del c
+    thr = torch.full((1,), int(eps * n), dtype=i32, device=dev)
+    cap = torch.full((1,), _max_phases(eps, n), dtype=i32, device=dev)
+    mv = torch.full((1,), n, dtype=i32, device=dev)
+    s0 = init_assignment_state(1, n, n, dev)
+    while int(s0.phases[0]) < start:
+        s0 = ops.fused_run_assignment_phases(c_int, s0, thr, cap,
+                                             SIZES["fused_k"], m_valid=mv)
+    return c_int, s0, thr, cap, mv
+
+
+def fig1_generator(torch, ops, seed, dev):
+    """The generator in the state phase 3 draws its Fig. 1 points from:
+    ``main``'s after phase 2's kernel checks, which this runs again (their
+    rows are dropped)."""
+    rng = np.random.default_rng(seed)
+    if not phase_kernels(torch, ops, rng, dev, [], {}):
+        raise RuntimeError("a kernel disagreed with its plain version")
+    return rng
+
+
+def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
+                        fig1_rng) -> bool:
+    """Each fused kernel for one k = 8 chunk from a state a few stepped
+    phases in: Fig. 1-like point clouds (B lanes of n uniform points,
+    euclidean), and Dirichlet masses for OT. Then the assignment kernel
+    at full width (``fused_assignment_full_chunk``; ``fig1_rng`` draws
+    phase 3's points). ``ms_per_round`` divides the chunk's time by its
+    largest lane's rounds."""
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.pushrelabel import run_assignment_phases
     from repro_torch.core.transport import (
         init_ot_state, ot_phase_cap, ot_prologue, ot_termination_threshold,
         run_ot_phases)
@@ -627,21 +703,9 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
     k = SIZES["fused_k"]
     i32 = torch.int32
 
-    def costs(b, n):
-        return torch.stack([build_cost_matrix(
-            _points(rng, n), _points(rng, n), "euclidean", device=dev)
-            for _ in range(b)])
-
-    b, n, eps, warm = SIZES["fused_assignment"]
-    eps_t = torch.full((b,), eps, dtype=torch.float32, device=dev)
-    _, c_int, _, _, _ = assignment_prologue(costs(b, n), eps_t)
-    thr = torch.full((b,), int(eps * n), dtype=i32, device=dev)
-    cap = torch.full((b,), _max_phases(eps, n), dtype=i32, device=dev)
-    mv = torch.full((b,), n, dtype=i32, device=dev)
-    s0 = run_assignment_phases(c_int, init_assignment_state(b, n, n, dev),
-                               thr, cap, warm)
+    c_int, s0, thr, cap, mv = fused_assignment_chunk(torch, rng, dev)
     row_a = _fused_row(
-        torch, ops, "fused_assignment_phases", (b, n, n),
+        torch, ops, "fused_assignment_phases", tuple(c_int.shape),
         lambda: ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
                                                 m_valid=mv),
         lambda: type(s0)(*fused_assignment_phases_ref(
@@ -651,7 +715,9 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
     del c_int, s0
 
     b, n, eps, warm = SIZES["fused_ot"]
-    c = costs(b, n)
+    c = torch.stack([build_cost_matrix(
+        _points(rng, n), _points(rng, n), "euclidean", device=dev)
+        for _ in range(b)])
     nu = rng.dirichlet(np.ones(n), b).astype(np.float32)
     mu = rng.dirichlet(np.ones(n), b).astype(np.float32)
     theta = np.float32(4.0 * n / eps)
@@ -676,11 +742,28 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         s0, c_int, k)
     del c, c_int, s0
     torch.cuda.empty_cache()
-    for row in (row_a, row_o):
+
+    # full width; the plain version takes ~0.4 s there, so it is timed once
+    c_int, s0, thr, cap, mv = fused_assignment_full_chunk(torch, ops,
+                                                          fig1_rng, dev)
+    row_f = _fused_row(
+        torch, ops, "fused_assignment_phases", tuple(c_int.shape),
+        lambda: ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
+                                                m_valid=mv),
+        lambda: type(s0)(*fused_assignment_phases_ref(
+            c_int, *s0, thr, cap, mv, k=k)),
+        lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
+        s0, c_int, k, plain_reps=1)
+    row_f.update(start_phase=int(s0.phases[0]),
+                 free_rows_before=int((s0.match_ba < 0).sum()))
+    del c_int, s0
+    torch.cuda.empty_cache()
+    for row in (row_a, row_o, row_f):
         log(f"[2] {json.dumps(row)}")
         rows.append(row)
-        kernel_rows[row["name"]] = row
-    return row_a["ok"] and row_o["ok"]
+        # the kernels line keeps the B = 16 row, as in earlier runs
+        kernel_rows.setdefault(row["name"], row)
+    return row_a["ok"] and row_o["ok"] and row_f["ok"]
 
 
 def phase_fused(torch, ops, rdev, dev, record, ctx, launches) -> bool:

@@ -9,29 +9,82 @@
 // (y_a -= 1 on M' columns, y_b += 1 on rows of B' still free). It equals
 // the stepped core (core/pushrelabel.run_assignment_phases) bit for bit:
 // the salt of round r is phases*7919 + r, a row proposes the first
-// column of minimum key (propose.cuh), the lowest proposing row wins a
-// column, the round cap is min(m, n) + 1 of the bucket's shape, and the
-// phase condition free > threshold & phases < phase_cap & phases - start
-// < k is checked before every phase, lane by lane.
+// column of minimum key, the lowest proposing row wins a column, the
+// round cap is min(m, n) + 1 of the bucket's shape, and the phase
+// condition free > threshold & phases < phase_cap & phases - start < k is
+// checked before every phase, lane by lane.
 //
-// What bounds it: each propose round reads c_int once for every row that
+// What bounds it: a propose round reads the c_int row of every row that
 // still proposes (4 bytes per element); the rest of the state is a few
-// vectors. Between the steps of a round the grid waits at a barrier.
+// vectors. Late in a solve few rows are left, so a round lasts as long as
+// the scan of one row, and every round ends at a grid barrier.
 //
-// Design: TPU VMEM held the whole state of one lane; at the full width
-// (B = 1, 10 000 x 10 000, 400 MB of c_int) nothing like it exists on the
-// card, and one block per lane would put the solve on one of 132 SMs. So
-// this is a persistent cooperative kernel: the grid is every block that
-// can be resident at once (cudaLaunchCooperativeKernel refuses more), the
-// state and scratch stay in global memory, and cooperative_groups'
-// grid.sync() separates the steps: phase set-up | propose | accept | ...
-// | push and relabel. Every loop decision (another phase, another round)
-// is taken by each block from the same global flags right after a
-// barrier, and nothing writes those flags before the next barrier, so all
-// blocks leave every loop together. Lanes that have stopped are masked.
-// Propose is one warp per row (propose.cuh); accept is an atomicMin of the
-// row index into a per-column winner array, double-buffered so one round
-// resets the other's. Counters read after atomics go through L2 (__ldcg).
+// Design: a persistent cooperative kernel (every block that can be
+// resident at once; cudaLaunchCooperativeKernel refuses more), the state
+// and scratch in global memory, grid.sync() between steps. Per chunk:
+//
+//   2 barriers at entry (copy the state in | count the free rows), then
+//   per phase: set-up | round 0 | round 1 | ... | round R | push, relabel
+//
+// one barrier after each step, so at most 2 + sum over phases of
+// (2 + rounds of the phase) barriers, where the rounds of a phase are
+// those of its longest-running lane, its last (empty) round included.
+//
+// One barrier per round: accept is folded into the next round.
+//   - won (B, n) holds, per column, (round << 32) | row of the column's
+//     winner in this phase, ~0 while no row took it; proposers atomicMin
+//     into it, so the lowest proposing row of a round wins, and a column
+//     is proposed to in one round only (it is taken in that round). So
+//     "available at the start of round r" is exactly (won >> 32) >= r,
+//     whether or not another row of round r has proposed to it yet: the
+//     scan needs no snapshot and no avail array.
+//   - At the start of round r + 1, a row that proposed in round r reads
+//     won[prop]: if its low word is the row, the row is matched in M' and
+//     leaves; otherwise it proposes again.
+//   - Push derives M' from prop and won alone (row i won iff
+//     won[prop[i]] names it; column j is new in M' iff won[j] != ~0), so
+//     it is right whichever round resolved a proposal or none did. (None
+//     is left in practice: every round with proposals matches a row and
+//     takes a column, so a lane has at most min(m, n) such rounds and its
+//     round min(m, n), the cap's last, proposes nothing.)
+//
+// Propose work sized to the live rows. Within a phase y_b, y_a are fixed
+// and the available columns only shrink, so a row that does not propose
+// in round r never proposes again in the phase. Round r + 1's candidates
+// are round r's proposers (each appends its row to a list); round 0's are
+// B', listed at set-up. After the barrier every block reads the list's
+// length and makes the same choice: with at least as many candidates as
+// resident warps, one warp per row; with fewer, one block per row, its 8
+// warps splitting the columns and merging their minima through shared
+// memory. No step of a round walks rows off the list or all columns.
+// Appends take one atomicAdd per block and step (a warp-per-row step
+// lists up to 8 rows at once; a block-per-row block keeps its rows in
+// shared memory until the round's end), so the list counter is not a
+// point of contention.
+//
+// Loop control is uniform across blocks: the round loop ends when round
+// r - 1 listed no proposer (read from its counter right after the
+// barrier, and nothing writes that counter until two rounds later), the
+// phase loop when no lane takes the phase (read from the free counts
+// right after the barrier). Per-lane flags (any row proposed, the lane's
+// matching done, its round count) are kept by one thread per lane.
+// Counters by parity (or round mod 3 where a counter is read by every
+// block at the start of a round) let a round reset the buffers of a
+// round whose readers have all passed a barrier since.
+//
+// The result is deterministic although the list order is not: a row's
+// proposal is the packed first minimum (key << 32) | col over its
+// available columns, which do not depend on the order in which other rows
+// of the round run; a column's winner is an atomicMin.
+//
+// Workspace (fused_assignment_workspace, 16-byte aligned pieces):
+//   won      (B, n) u64    winner of each column in this phase, ~0
+//   prop     (B, m) i32    last column a row of B' proposed to, -1
+//   cand     (2, B*m) i32  candidate rows b*m + i, by round parity
+//   cand_len (3) i32       list lengths, by round mod 3
+//   lane_on, done (B) i32  the lane takes the phase / its matching ended
+//   any_prop (2, B) i32    some row of the lane proposed, by round parity
+//   free_cnt (2, B) i32    free valid rows, by phase parity
 
 #include <algorithm>
 #include <climits>
@@ -47,6 +100,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned long long kFree = ~0ull;  // won[] of an untaken column
 
 struct Args {
   const int *c;  // (B, m, n) costs in units of eps
@@ -56,24 +111,16 @@ struct Args {
   const int *thr, *cap, *mvalid;
   // ... and the state as returned, updated in place by the kernel
   int *mba, *mab, *yb, *ya, *ph, *rd, *sni;
-  // scratch (see workspace_layout)
-  int *mprime_b;           // (B, m) M' partner of each row, -1
-  int *mprime_a;           // (B, n) M' partner of each column, -1
-  int *winners;            // (2, B, n) lowest proposing row, INT_MAX
-  int *prop;               // (B, m) proposed column, -1
-  int *lane_on;            // (B) the lane takes this phase
-  int *done;               // (B) the lane's matching is maximal
-  int *any_prop;           // (B) some row of the lane proposed this round
-  int *free_cnt;           // (2, B) free valid rows, by phase parity
-  unsigned char *avail;    // (B, n) column not matched in M' yet
-  unsigned char *active;   // (B, m) row in B' not matched in M' yet
+  // scratch (see the workspace layout above)
+  unsigned long long *won;
+  int *prop, *cand, *cand_len, *lane_on, *done, *any_prop, *free_cnt;
   int B, m, n, k, vec;
 };
 
 // Offsets, in bytes, of the scratch arrays in one workspace.
 struct Layout {
-  long long mprime_b, mprime_a, winners, prop, lane_on, done, any_prop,
-      free_cnt, avail, active, total;
+  long long won, prop, cand, cand_len, lane_on, done, any_prop, free_cnt,
+      total;
 };
 
 __host__ __device__ long long align16(long long x) { return (x + 15) & ~15ll; }
@@ -87,16 +134,14 @@ Layout workspace_layout(int B, int m, int n) {
     at = align16(at + bytes);
     return here;
   };
-  l.mprime_b = take(4 * Bm);
-  l.mprime_a = take(4 * Bn);
-  l.winners = take(8 * Bn);
+  l.won = take(8 * Bn);
   l.prop = take(4 * Bm);
+  l.cand = take(8 * Bm);
+  l.cand_len = take(4 * 3);
   l.lane_on = take(4ll * B);
   l.done = take(4ll * B);
-  l.any_prop = take(4ll * B);
+  l.any_prop = take(8ll * B);
   l.free_cnt = take(8ll * B);
-  l.avail = take(Bn);
-  l.active = take(Bm);
   l.total = at;
   return l;
 }
@@ -109,18 +154,112 @@ __device__ __forceinline__ bool lane_runs(const Args &a, const int *fc,
          ph - a.ph_in[b] < a.k;
 }
 
+// One thread's share of a row's scan in round r: the columns from
+// `first` in steps of `step` (in 4-column groups when kVec). Column j is
+// admissible if y_b + y_a[j] == c[j] + 1 and it was available at the
+// start of the round. Folds (key << 32) | j into `best` (visit,
+// propose.cuh).
+template <bool kVec>
+__device__ __forceinline__ void scan_row(const int *__restrict__ crow,
+                                         const int *ya,
+                                         const unsigned long long *won,
+                                         int yb, uint32_t base, int n,
+                                         uint32_t r, int first, int step,
+                                         unsigned long long &best,
+                                         bool &any) {
+  if constexpr (kVec) {
+    const int4 *c4 = reinterpret_cast<const int4 *>(crow);
+    const int4 *ya4 = reinterpret_cast<const int4 *>(ya);
+    // two columns per 16 bytes: (lo, hi) words, little-endian
+    const uint4 *w4 = reinterpret_cast<const uint4 *>(won);
+#pragma unroll 2
+    for (int q = first; q < (n >> 2); q += step) {
+      const int4 cv = __ldg(c4 + q);
+      const int4 yv = ya4[q];
+      const uint4 w01 = __ldcg(w4 + 2 * q);
+      const uint4 w23 = __ldcg(w4 + 2 * q + 1);
+      const int j = q << 2;
+      visit(cv.x, yb, yv.x, w01.y >= r, base, j, best, any);
+      visit(cv.y, yb, yv.y, w01.w >= r, base, j + 1, best, any);
+      visit(cv.z, yb, yv.z, w23.y >= r, base, j + 2, best, any);
+      visit(cv.w, yb, yv.w, w23.w >= r, base, j + 3, best, any);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = first; j < n; j += step) {
+      const bool av = (uint32_t)(__ldcg(won + j) >> 32) >= r;
+      visit(__ldg(crow + j), yb, ya[j], av, base, j, best, any);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long warp_min(
+    unsigned long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+// Appends x to list where pred, with one atomicAdd on *len per block.
+// Every thread of the block calls it.
+__device__ __forceinline__ void block_append(bool pred, int x, int *list,
+                                             int *len, int *s_cnt,
+                                             int *s_base) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ball = __ballot_sync(0xFFFFFFFFu, pred);
+  if (lane == 0) s_cnt[warp] = __popc(ball);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_cnt[w];
+      s_cnt[w] = total;
+      total += c;
+    }
+    *s_base = total ? atomicAdd(len, total) : 0;
+  }
+  __syncthreads();
+  if (pred)
+    list[*s_base + s_cnt[warp] + __popc(ball & ((1u << lane) - 1u))] = x;
+}
+
+// Adds to cnt[b] the lanes of the warp where pred (b may differ between
+// lanes). Every lane of the warp calls it.
+__device__ __forceinline__ void warp_count(int *cnt, int b, bool pred) {
+  const unsigned ball = __ballot_sync(0xFFFFFFFFu, pred);
+  if (!ball) return;
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, b) & ball;
+  if (pred && (threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(cnt + b, __popc(peers));
+}
+
+// A proposal of row i (lane b) for column col in round r.
+__device__ __forceinline__ void propose(const Args &a, int x, int b, int i,
+                                        int col, int r, int *ap) {
+  a.prop[x] = col;
+  atomicMin(a.won + (long long)b * a.n + col,
+            ((unsigned long long)(uint32_t)r << 32) | (uint32_t)i);
+  if (!__ldcg(ap + b)) ap[b] = 1;
+}
+
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 fused_assignment_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned long long s_best[kWarps];
+  __shared__ int s_any[kWarps], s_cnt[kWarps], s_new[kWarps];
+  __shared__ int s_base;
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long gsize = (long long)gridDim.x * blockDim.x;
-  const long long gwarp = gtid >> 5, nwarps = gsize >> 5;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int B = a.B, m = a.m, n = a.n;
-  const long long Bm = (long long)B * m, Bn = (long long)B * n;
+  const int Bm = B * m;  // the launcher checks that it fits
+  const long long Bn = (long long)B * n;
 
-  // copy the state in; zero the per-lane counters
+  // copy the state in; zero the counters
   for (long long x = gtid; x < Bm; x += gsize) {
     a.mba[x] = a.mba_in[x];
     a.yb[x] = a.yb_in[x];
@@ -135,13 +274,15 @@ fused_assignment_kernel(Args a) {
     a.sni[b] = a.sni_in[b];
     a.free_cnt[b] = 0;
     a.free_cnt[B + b] = 0;
-    a.any_prop[b] = 0;
   }
+  if (gtid < 2) a.cand_len[gtid] = 0;
   grid.sync();
-  for (long long x = gtid; x < Bm; x += gsize) {
-    const int b = (int)(x / m);
-    if (a.mba[x] < 0 && (int)(x % m) < a.mvalid[b])
-      atomicAdd(&a.free_cnt[b], 1);
+  // the warp's rows are consecutive: x0 is the same on every lane
+  for (long long x0 = gtid - lane; x0 < Bm; x0 += gsize) {
+    const int x = (int)(x0 + lane);
+    const int b = x < Bm ? x / m : 0;
+    warp_count(a.free_cnt, b,
+               x < Bm && a.mba_in[x] < 0 && x - b * m < a.mvalid[b]);
   }
   grid.sync();
 
@@ -158,105 +299,168 @@ fused_assignment_kernel(Args a) {
       const bool on = lane_runs(a, fc, (int)b);
       a.lane_on[b] = on;
       a.done[b] = !on;
+      a.any_prop[b] = 0;
+      a.any_prop[B + b] = 0;
       fc_next[b] = 0;
     }
-    for (long long x = gtid; x < Bm; x += gsize) {
-      const int b = (int)(x / m);
-      a.active[x] = lane_runs(a, fc, b) && a.mba[x] < 0 &&
-                    (int)(x % m) < a.mvalid[b];
-      a.mprime_b[x] = -1;
-    }
-    for (long long x = gtid; x < Bn; x += gsize) {
-      a.avail[x] = 1;
-      a.mprime_a[x] = -1;
-      a.winners[x] = INT_MAX;
+    for (long long x = gtid; x < Bn; x += gsize) a.won[x] = kFree;
+    // round 0's candidates: B', the free valid rows of the lanes on
+    for (long long x0 = (long long)blockIdx.x * kThreads; x0 < Bm;
+         x0 += gsize) {
+      const int x = (int)(x0 + threadIdx.x);
+      bool in_bp = false;
+      if (x < Bm) {
+        const int b = x / m;
+        in_bp = a.mba[x] < 0 && x - b * m < a.mvalid[b] &&
+                lane_runs(a, fc, b);
+        if (in_bp) a.prop[x] = -1;
+      }
+      block_append(in_bp, x, a.cand, a.cand_len, s_cnt, &s_base);
     }
     grid.sync();
 
-    // (I) greedy maximal matching: propose / accept rounds
+    // (I) greedy maximal matching: one barrier per propose round
     for (int r = 0; r < mm_cap; ++r) {
-      int *win = a.winners + (r & 1) * Bn;
-      int *win_next = a.winners + ((r + 1) & 1) * Bn;
-      bool running = false;
-      for (int b = threadIdx.x; b < B; b += blockDim.x)
-        running = running || !a.done[b];
-      if (!__syncthreads_or(running)) break;
-      // propose: one warp per row; the branch is the same for the warp
-      for (long long w = gwarp; w < Bm; w += nwarps) {
-        const int b = (int)(w / m), i = (int)(w % m);
-        int col = -1;
-        if (a.active[w] && !a.done[b]) {
-          const uint32_t base =
-              (uint32_t)i * kH1 + round_salt(a.ph[b], r) * kH3;
-          const RowPick pick = propose_row<kVec, false>(
-              a.c + w * (long long)n, a.ya + (long long)b * n,
-              a.avail + (long long)b * n, a.yb[w], base, n, lane);
-          if (pick.any) col = (int)(pick.best & 0xFFFFFFFFull);
-        }
-        if (lane == 0) {
-          a.prop[w] = col;
-          if (col >= 0) {
-            atomicMin(&win[(long long)b * n + col], i);
-            a.any_prop[b] = 1;
-          }
-        }
-      }
-      grid.sync();
-      // accept: the lowest proposing row wins the column
-      for (long long x = gtid; x < Bm; x += gsize) {
-        const int col = a.prop[x];
-        if (col < 0) continue;
-        const int b = (int)(x / m), i = (int)(x % m);
-        const long long bc = (long long)b * n + col;
-        if (__ldcg(win + bc) == i) {
-          a.mprime_b[x] = col;
-          a.mprime_a[bc] = i;
-          a.avail[bc] = 0;
-          a.active[x] = 0;
-        }
-      }
-      for (long long x = gtid; x < Bn; x += gsize) win_next[x] = INT_MAX;
+      const int len = __ldcg(a.cand_len + r % 3);
+      // round r - 1 had no proposer: every lane's matching is maximal
+      if (r > 0 && len == 0) break;
+      // per lane: a lane whose rows proposed nothing in round r - 1 is
+      // done; a lane not done takes round r (and counts it)
       for (long long b = gtid; b < B; b += gsize) {
-        if (!a.done[b]) {
-          a.rd[b] += 1;
-          if (!a.any_prop[b]) a.done[b] = 1;
+        int *ap_prev = a.any_prop + ((r + 1) & 1) * B;
+        bool done = a.done[b];
+        if (r > 0) {
+          done = done || !__ldcg(ap_prev + b);
+          ap_prev[b] = 0;
         }
-        a.any_prop[b] = 0;
+        a.done[b] = done;
+        if (!done) a.rd[b] += 1;
+      }
+      if (gtid == 0) a.cand_len[(r + 2) % 3] = 0;
+      const int *list = a.cand + (r & 1) * Bm;
+      int *next = a.cand + ((r + 1) & 1) * Bm;
+      int *next_len = a.cand_len + (r + 1) % 3;
+      int *ap = a.any_prop + (r & 1) * B;
+
+      if (len >= (int)gridDim.x * kWarps) {
+        // one warp per candidate row, kWarps rows per block and step
+        for (int t0 = blockIdx.x * kWarps; t0 < len;
+             t0 += gridDim.x * kWarps) {
+          const int t = t0 + warp;
+          int x = -1, col = -1;
+          if (t < len) {
+            x = __ldcg(list + t);
+            const int b = x / m, i = x - b * m;
+            const unsigned long long *won = a.won + (long long)b * n;
+            const bool matched =
+                r > 0 && (uint32_t)__ldcg(won + __ldcg(a.prop + x)) ==
+                             (uint32_t)i;
+            if (!matched) {
+              unsigned long long best = ~0ull;
+              bool any = false;
+              scan_row<kVec>(a.c + (long long)x * n, a.ya + (long long)b * n,
+                             won, a.yb[x],
+                             (uint32_t)i * kH1 + round_salt(a.ph[b], r) * kH3,
+                             n, (uint32_t)r, lane, 32, best, any);
+              best = warp_min(best);
+              if (__any_sync(0xFFFFFFFFu, any))
+                col = (int)(best & 0xFFFFFFFFull);
+            }
+            if (lane == 0 && col >= 0) propose(a, x, b, i, col, r, ap);
+          }
+          block_append(lane == 0 && col >= 0, x, next, next_len, s_cnt,
+                       &s_base);
+        }
+      } else {
+        // one block per candidate row; fewer than kWarps rows per block,
+        // buffered in s_new and appended once
+        int n_new = 0;
+        for (int t = blockIdx.x; t < len; t += gridDim.x) {
+          const int x = __ldcg(list + t);
+          const int b = x / m, i = x - b * m;
+          const unsigned long long *won = a.won + (long long)b * n;
+          // the same on every thread of the block
+          if (r > 0 &&
+              (uint32_t)__ldcg(won + __ldcg(a.prop + x)) == (uint32_t)i)
+            continue;
+          unsigned long long best = ~0ull;
+          bool any = false;
+          scan_row<kVec>(a.c + (long long)x * n, a.ya + (long long)b * n,
+                         won, a.yb[x],
+                         (uint32_t)i * kH1 + round_salt(a.ph[b], r) * kH3,
+                         n, (uint32_t)r, threadIdx.x, kThreads, best, any);
+          best = warp_min(best);
+          any = __any_sync(0xFFFFFFFFu, any);
+          if (lane == 0) {
+            s_best[warp] = best;
+            s_any[warp] = any;
+          }
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            bool row_any = false;
+            for (int w = 0; w < kWarps; ++w) {
+              best = s_best[w] < best ? s_best[w] : best;
+              row_any = row_any || s_any[w];
+            }
+            if (row_any) {
+              propose(a, x, b, i, (int)(best & 0xFFFFFFFFull), r, ap);
+              s_new[n_new++] = x;
+            }
+          }
+          __syncthreads();
+        }
+        if (threadIdx.x == 0 && n_new > 0) {
+          const int at = atomicAdd(next_len, n_new);
+          for (int j = 0; j < n_new; ++j) next[at + j] = s_new[j];
+        }
       }
       grid.sync();
     }
 
     // (II) push and (III) relabel, on the lanes that took the phase; the
     // free rows of every lane are counted for the next phase
-    for (long long x = gtid; x < Bm; x += gsize) {
-      const int b = (int)(x / m);
-      const bool row_ok = (int)(x % m) < a.mvalid[b];
-      const int old = a.mba[x];
-      int now = old;
-      if (a.lane_on[b]) {
-        const int w = a.mprime_b[x];
-        const bool won = w >= 0;
-        const bool displaced =
-            old >= 0 && a.mprime_a[(long long)b * n + old] >= 0;
-        now = won ? w : (displaced ? -1 : old);
-        a.mba[x] = now;
-        const bool in_bp = old < 0 && row_ok;
-        if (in_bp) {
-          atomicAdd(&a.sni[b], 1);
-          if (!won) a.yb[x] += 1;
+    for (long long x0 = gtid - lane; x0 < Bm; x0 += gsize) {
+      const int x = (int)(x0 + lane);
+      int b = 0;
+      bool free_now = false;
+      if (x < Bm) {
+        b = x / m;
+        const int i = x - b * m;
+        const bool row_ok = i < a.mvalid[b];
+        const unsigned long long *won = a.won + (long long)b * n;
+        const int old = a.mba[x];
+        int now = old;
+        if (a.lane_on[b]) {
+          const bool in_bp = old < 0 && row_ok;
+          int w = -1;
+          if (in_bp) {
+            const int pc = __ldcg(a.prop + x);
+            if (pc >= 0 && (uint32_t)__ldcg(won + pc) == (uint32_t)i) w = pc;
+          }
+          const bool displaced = old >= 0 && __ldcg(won + old) != kFree;
+          now = w >= 0 ? w : (displaced ? -1 : old);
+          a.mba[x] = now;
+          if (in_bp && w < 0) a.yb[x] += 1;
         }
+        free_now = now < 0 && row_ok;
       }
-      if (now < 0 && row_ok) atomicAdd(&fc_next[b], 1);
+      warp_count(fc_next, b, free_now);
     }
+    // a column is taken only on a lane that took the phase
     for (long long x = gtid; x < Bn; x += gsize) {
-      const int w = a.mprime_a[x];
-      if (w >= 0 && a.lane_on[x / n]) {
-        a.mab[x] = w;
+      const unsigned long long w = __ldcg(a.won + x);
+      if (w != kFree) {
+        a.mab[x] = (int)(uint32_t)w;
         a.ya[x] -= 1;
       }
     }
     for (long long b = gtid; b < B; b += gsize)
-      if (a.lane_on[b]) a.ph[b] += 1;
+      if (a.lane_on[b]) {
+        a.ph[b] += 1;
+        a.sni[b] += __ldcg(fc + b);  // |B'|: the free valid rows
+      }
+    // the next set-up lists into cand_len[0], its round 0 into [1]
+    if (gtid < 2) a.cand_len[gtid] = 0;
     grid.sync();
   }
 }
@@ -269,7 +473,8 @@ fused_assignment_kernel(Args a) {
 // phase_cap, m_valid (B); the state out, same shapes; ws a workspace of
 // fused_assignment_workspace(B, m, n) bytes. ``vec`` != 0 selects the
 // 16-byte loads (the caller checks n % 4 == 0 and 16-byte alignment of
-// c and y_a). Returns the cudaError_t of the launch.
+// c; y_a and the workspace are allocated aligned). Returns the
+// cudaError_t of the launch.
 extern "C" long long fused_assignment_workspace(int B, int m, int n) {
   return workspace_layout(B, m, n).total;
 }
@@ -282,6 +487,8 @@ extern "C" int fused_assignment_launch(
     void *ya, void *ph, void *rd, void *sni, void *ws, int B, int m, int n,
     int k, int vec, void *stream) {
   if (B == 0 || m == 0 || n == 0 || k <= 0) return (int)cudaSuccess;
+  // rows are numbered b * m + i in int32
+  if ((long long)B * m >= INT_MAX) return (int)cudaErrorInvalidValue;
   const Layout l = workspace_layout(B, m, n);
   char *w = static_cast<char *>(ws);
   Args a;
@@ -303,16 +510,14 @@ extern "C" int fused_assignment_launch(
   a.ph = static_cast<int *>(ph);
   a.rd = static_cast<int *>(rd);
   a.sni = static_cast<int *>(sni);
-  a.mprime_b = reinterpret_cast<int *>(w + l.mprime_b);
-  a.mprime_a = reinterpret_cast<int *>(w + l.mprime_a);
-  a.winners = reinterpret_cast<int *>(w + l.winners);
+  a.won = reinterpret_cast<unsigned long long *>(w + l.won);
   a.prop = reinterpret_cast<int *>(w + l.prop);
+  a.cand = reinterpret_cast<int *>(w + l.cand);
+  a.cand_len = reinterpret_cast<int *>(w + l.cand_len);
   a.lane_on = reinterpret_cast<int *>(w + l.lane_on);
   a.done = reinterpret_cast<int *>(w + l.done);
   a.any_prop = reinterpret_cast<int *>(w + l.any_prop);
   a.free_cnt = reinterpret_cast<int *>(w + l.free_cnt);
-  a.avail = reinterpret_cast<unsigned char *>(w + l.avail);
-  a.active = reinterpret_cast<unsigned char *>(w + l.active);
   a.B = B;
   a.m = m;
   a.n = n;
@@ -333,8 +538,7 @@ extern "C" int fused_assignment_launch(
   if (e != cudaSuccess) return (int)e;
   if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // every resident block, but no more than one warp per row needs
-  const long long want = ((long long)B * m + kThreads / 32 - 1) /
-                         (kThreads / 32);
+  const long long want = ((long long)B * m + kWarps - 1) / kWarps;
   const int grid = (int)std::min<long long>((long long)per_sm * sms,
                                             std::max<long long>(want, 1));
   void *args[] = {&a};

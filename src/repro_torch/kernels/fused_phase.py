@@ -31,8 +31,9 @@ The CUDA kernels are ``csrc/fused_assignment.cu`` and ``csrc/fused_ot.cu``
 propose scan reads ``c_int`` once per round for every row that still
 proposes (4 bytes per element), so a chunk is bound by those bytes at the
 HBM rate; the OT kernel also reads and writes the two flow matrices once
-per phase. Between the steps of a round they wait at grid-wide barriers,
-whose cost grows with the rounds, not with the bytes.
+per phase. They wait at grid-wide barriers (the assignment kernel at one
+per propose round, the OT kernel at two), whose cost grows with the
+rounds, not with the bytes.
 """
 from __future__ import annotations
 

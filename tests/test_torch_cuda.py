@@ -172,6 +172,59 @@ def test_fused_assignment_kernel_equals_plain(dev, b, m, n, k):
         assert _states_equal(got, ref)
 
 
+# (b, m, n, k, chunks, oracle): what the one-barrier-per-round design
+# with candidate lists can get wrong. "plain" holds the kernel against
+# fused_assignment_phases_ref, "stepped" against run_assignment_phases on
+# the card (the plain version is too slow at 4096^2).
+FUSED_ASSIGNMENT_CASES = {
+    # eps 0.03 / 0.06 / 0.1 lanes: their matchings end in different rounds
+    "lanes_end_in_different_rounds": (6, 96, 96, 4, 5, "plain"),
+    # lane 0's threshold is already met: it takes no phase
+    "lane_below_threshold": (3, 64, 64, 3, 4, "plain"),
+    "m_above_n": (3, 120, 72, 4, 4, "plain"),
+    "n_above_m": (3, 72, 120, 4, 4, "plain"),
+    # k above every lane's phase cap: each lane stops on its own
+    "k_above_cap": (3, 20, 24, 0, 1, "plain"),
+    # n % 4 != 0: the 4-byte scan
+    "unaligned_n": (4, 64, 47, 5, 4, "plain"),
+    # 32 768 rows of B' in the first rounds: more candidates than
+    # resident warps, one warp per row
+    "long_list_warp_per_row": (8, 4096, 4096, 8, 2, "stepped"),
+    # at most 300 candidates: one block per row throughout
+    "short_list_block_per_row": (1, 300, 320, 8, 4, "plain"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUSED_ASSIGNMENT_CASES))
+def test_fused_assignment_kernel_design_cases(dev, case):
+    from repro_torch.core.pushrelabel import (init_assignment_state,
+                                              run_assignment_phases)
+    from repro_torch.kernels.fused_phase import fused_assignment_phases_ref
+
+    b, m, n, k, chunks, oracle = FUSED_ASSIGNMENT_CASES[case]
+    c, thr, cap, mv = _fused_assignment_inputs(dev, b, m, n, b * m + n)
+    if case == "lane_below_threshold":
+        thr[0] = m
+    k = k or int(cap.max()) + 1
+    got = ref = init_assignment_state(b, m, n, dev)
+    for _ in range(chunks):
+        got = ops.fused_run_assignment_phases(c, got, thr, cap, k,
+                                              m_valid=mv)
+        if oracle == "plain":
+            ref = type(ref)(*fused_assignment_phases_ref(c, *ref, thr, cap,
+                                                         mv, k=k))
+        else:
+            ref = run_assignment_phases(c, ref, thr, cap, k, m_valid=mv)
+        torch.cuda.synchronize()
+        assert _states_equal(got, ref)
+    phases = got.phases.tolist()
+    if case == "lane_below_threshold":
+        assert phases[0] == 0 and max(phases) > 0
+    if case == "lanes_end_in_different_rounds":
+        assert len(set(got.rounds.tolist())) > 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nb,na,k", [(3, 16, 16, 3), (4, 21, 13, 8),
                                        (2, 300, 290, 2), (1, 512, 512, 4)])

@@ -296,3 +296,48 @@ def test_plain_fused_leaves_inputs_unchanged():
                                           m_valid=tmv)
     _assert_equal(s0, keep, "input state")
     assert int(out.phases.max()) == 4
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("m,n,m_valid", ASSIGN_SHAPES)
+def test_round_proposers_only_shrink(monkeypatch, m, n, m_valid, seed):
+    """The premise of the CUDA kernel's candidate lists: within a phase,
+    the rows that propose in round r + 1 are among those that proposed in
+    round r and did not win there. Recorded from the stepped core's
+    propose calls on a 3-lane batch with mixed eps and ragged m_valid."""
+    from repro_torch.core import pushrelabel
+
+    c_int, thr, cap, mv = _assignment_batch(m, n, m_valid, 17 * seed + m)
+    tc, tthr, tcap, tmv = _t(c_int, thr, cap, mv)
+    phases = []
+    orig_mm = pushrelabel.greedy_maximal_matching
+    orig_propose = ops.slack_propose_batched
+
+    def matching(*a, **kw):
+        phases.append([])
+        return orig_mm(*a, **kw)
+
+    def propose(c, *a, active_b=None):
+        col, key = orig_propose(c, *a, active_b=active_b)
+        phases[-1].append(col.clone())
+        return col, key
+
+    monkeypatch.setattr(pushrelabel, "greedy_maximal_matching", matching)
+    monkeypatch.setattr(ops, "slack_propose_batched", propose)
+    run_assignment_phases(tc, init_assignment_state(3, m, n), tthr, tcap,
+                          int(cap.max()) + 1, m_valid=tmv)
+    rows = torch.arange(m)[None, :].expand(3, m)
+    checked = 0
+    for cols in phases:
+        for before, after in zip(cols, cols[1:]):
+            proposed = before >= 0
+            # per column, the lowest proposing row wins
+            tgt = torch.where(proposed, before, n).long()
+            low = torch.full((3, n + 1), m).scatter_reduce(
+                1, tgt, torch.where(proposed, rows, m), reduce="amin")
+            won = proposed & (low.gather(1, tgt) == rows)
+            again = after >= 0
+            assert not bool((again & ~(proposed & ~won)).any())
+            checked += int(again.sum())
+    # some row did propose again after losing a round
+    assert checked > 0

@@ -1,0 +1,304 @@
+#!/usr/bin/env python3
+"""Time one ``fused_assignment_phases`` chunk and split it at its grid
+barriers, on the two chunks of ``chip_smoke.py`` phase 2.
+
+    python3 tools/fused_chunk_split.py [--source FILE] [--seed 0]
+                                       [--reps 10] [--out FILE]
+
+The chunks are chip_smoke's own, built by its helpers from the same seed
+(``fused_assignment_chunk``, ``fused_assignment_full_chunk``): B = 16
+lanes of 1024 x 1024 three stepped phases in, and B = 1 on phase 3's
+Fig. 1 costs (n = 10 000, eps = 0.01) from phase 280; one k = 8 chunk
+each. To draw phase 3's points the tool runs chip_smoke's phase-2 kernel
+checks first, as chip_smoke does.
+
+``--source`` names the ``fused_assignment.cu`` to measure (default: this
+checkout's). Pass another version's, for example the parent commit
+unpacked with ``git archive``, to compare two versions on one card: one
+run per source, alternating. Its headers are read from its own
+directory, and nothing else of its tree is read; it must keep this
+checkout's C entry point (``kernels/ops.py``). The tool compiles the
+source twice into this checkout's ``build/fused_chunk_split/``:
+
+- as it stands, for the chunk's time (median of ``reps`` CUDA-event
+  timings);
+- with a timer at each ``grid.sync();``: thread 0 of every block reads
+  ``%globaltimer`` (32 ns ticks) as its block arrives at the barrier and
+  as it leaves. Per barrier, the work before it is the last arrival
+  minus the previous release (the critical path), and the release is
+  the first exit minus the last arrival. Works are summed by the
+  barrier's line in the source.
+
+Both copies must give the state of this checkout's kernel, which the
+tool checks. An empty cooperative kernel of the same grid gives the cost
+of one bare barrier. Prints one JSON line per chunk. Needs one CUDA
+device and ``nvcc``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+MAX_BARRIERS = 1024
+MAX_BLOCKS = 2048
+
+# defined ahead of the source; "#line 1" keeps its line numbers
+_PRELUDE = r'''
+__device__ unsigned long long *split_arr, *split_exit;
+__device__ int *split_line;
+__device__ int split_max, split_grid, split_block;
+__device__ int split_count[%(blocks)d];
+
+__device__ __forceinline__ unsigned long long split_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(t));
+  return t;
+}
+
+#define SPLIT_SYNC(line)                                                  \
+  do {                                                                    \
+    __syncthreads();                                                      \
+    if (threadIdx.x == 0 && split_count[blockIdx.x] < split_max)          \
+      split_arr[(long long)split_count[blockIdx.x] * gridDim.x +          \
+                blockIdx.x] = split_timer();                              \
+    grid.sync();                                                          \
+    if (threadIdx.x == 0) {                                               \
+      const int i_ = split_count[blockIdx.x]++;                           \
+      if (i_ < split_max) {                                               \
+        split_exit[(long long)i_ * gridDim.x + blockIdx.x] =              \
+            split_timer();                                                \
+        if (blockIdx.x == 0) {                                            \
+          split_line[i_] = (line);                                        \
+          split_grid = gridDim.x;                                         \
+          split_block = blockDim.x;                                       \
+        }                                                                 \
+      }                                                                   \
+    }                                                                     \
+  } while (0)
+#line 1
+'''
+
+_EPILOGUE = r'''
+__global__ void split_empty(int reps, unsigned long long *t) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (threadIdx.x == 0 && blockIdx.x == 0) t[0] = split_timer();
+  for (int i = 0; i < reps; ++i) grid.sync();
+  if (threadIdx.x == 0 && blockIdx.x == 0) t[1] = split_timer();
+}
+
+extern "C" int split_setup(void *arr, void *ex, void *line, int max) {
+  void *cnt = nullptr;
+  cudaError_t e = cudaMemcpyToSymbol(split_arr, &arr, sizeof arr);
+  if (!e) e = cudaMemcpyToSymbol(split_exit, &ex, sizeof ex);
+  if (!e) e = cudaMemcpyToSymbol(split_line, &line, sizeof line);
+  if (!e) e = cudaMemcpyToSymbol(split_max, &max, sizeof max);
+  if (!e) e = cudaGetSymbolAddress(&cnt, split_count);
+  if (!e) e = cudaMemset(cnt, 0, sizeof split_count);
+  return (int)e;
+}
+
+// barriers passed by block 0, the grid and the block size of the launch
+extern "C" int split_result(int *out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, split_count, sizeof(int));
+  if (!e) e = cudaMemcpyFromSymbol(out + 1, split_grid, sizeof(int));
+  if (!e) e = cudaMemcpyFromSymbol(out + 2, split_block, sizeof(int));
+  return (int)e;
+}
+
+extern "C" int split_empty_launch(int grid, int block, int reps, void *t) {
+  void *args[] = {&reps, &t};
+  cudaError_t e = cudaLaunchCooperativeKernel((void *)split_empty,
+      dim3(grid), dim3(block), args, 0, 0);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceSynchronize();
+}
+'''
+
+
+def instrument(src: str) -> str:
+    """``src`` with every ``grid.sync();`` timed; line numbers kept."""
+    body, sites = re.subn(r"\bgrid\.sync\(\);", "SPLIT_SYNC(__LINE__);",
+                          src)
+    if not sites:
+        raise RuntimeError("fused_chunk_split: no grid.sync(); in the source")
+    return _PRELUDE % {"blocks": MAX_BLOCKS} + body + _EPILOGUE
+
+
+def build(source: Path, ops):
+    """Compiles ``source`` as it stands and instrumented, in parallel;
+    returns the two loaded libraries (plain, timed)."""
+    out = ROOT / "build" / "fused_chunk_split"
+    out.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256((ops.source_digest(source) + _PRELUDE
+                             + _EPILOGUE).encode()).hexdigest()[:16]
+    timed_cu = out / f"timed-{digest}.cu"
+    timed_cu.write_text(instrument(source.read_text()))
+    jobs = [(source, out / f"libplain-{digest}.so"),
+            (timed_cu, out / f"libtimed-{digest}.so")]
+    procs = [subprocess.Popen(
+        [ops._nvcc(), *ops.NVCC_FLAGS, "-I", str(source.parent), "-o",
+         str(so), str(cu)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for cu, so in jobs if not so.exists()]
+    for p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+    libs = []
+    _, fn_name, argtypes = ops._ENTRY["fused_assignment_phases"]
+    for _, so in jobs:
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, fn_name).argtypes = argtypes
+        lib.fused_assignment_workspace.argtypes = [ctypes.c_int] * 3
+        lib.fused_assignment_workspace.restype = ctypes.c_longlong
+        libs.append(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs[1].split_setup.argtypes = [p, p, p, i]
+    libs[1].split_result.argtypes = [p]
+    libs[1].split_empty_launch.argtypes = [i, i, i, p]
+    return libs
+
+
+def launcher(torch, lib, c_int, s0, thr, cap, mv, k):
+    """``fused_assignment_launch`` of ``lib`` on one chunk, as
+    ``ops.fused_run_assignment_phases`` calls it; returns a function that
+    runs it and returns the state out."""
+    b, m, n = c_int.shape
+    ws = torch.empty(int(lib.fused_assignment_workspace(b, m, n)),
+                     dtype=torch.uint8, device=c_int.device)
+    vec = int(n % 4 == 0 and c_int.data_ptr() % 16 == 0)
+
+    def run():
+        out = [torch.empty_like(t) for t in s0]
+        err = lib.fused_assignment_launch(
+            c_int.data_ptr(), *(t.data_ptr() for t in s0), thr.data_ptr(),
+            cap.data_ptr(), mv.data_ptr(), *(t.data_ptr() for t in out),
+            ws.data_ptr(), b, m, n, k, vec,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_assignment_launch failed ({err})")
+        return type(s0)(*out)
+    return run
+
+
+def split(torch, lib, run, dev):
+    """The per-line split of one instrumented run (the median of 7 by
+    span) and the cost of a bare barrier on the same grid."""
+    t_arr = torch.zeros(MAX_BARRIERS * MAX_BLOCKS, dtype=torch.int64,
+                        device=dev)
+    t_exit = torch.zeros_like(t_arr)
+    lines = torch.zeros(MAX_BARRIERS, dtype=torch.int32, device=dev)
+    res = (ctypes.c_int * 3)()
+    runs = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        if lib.split_setup(t_arr.data_ptr(), t_exit.data_ptr(),
+                           lines.data_ptr(), MAX_BARRIERS):
+            raise RuntimeError("split_setup failed")
+        run()
+        torch.cuda.synchronize()
+        if lib.split_result(res):
+            raise RuntimeError("split_result failed")
+        nbar, g, block = res
+        if nbar > MAX_BARRIERS or g > MAX_BLOCKS:
+            raise RuntimeError("fused_chunk_split: buffers too small")
+        arr = t_arr[:nbar * g].view(nbar, g).cpu().numpy()
+        ext = t_exit[:nbar * g].view(nbar, g).cpu().numpy()
+        tags = lines[:nbar].cpu().numpy()
+        last_in, first_out = arr.max(1), ext.min(1)
+        prev = np.concatenate([[arr[0].min()], first_out[:-1]])
+        work, mean_work = last_in - prev, arr.mean(1) - prev
+        by_line = {}
+        for line in sorted(set(tags.tolist())):
+            sel = tags == line
+            by_line[f"line {line}"] = {
+                "barriers": int(sel.sum()),
+                "critical_us": float(work[sel].sum() / 1e3),
+                "mean_block_us": float(mean_work[sel].sum() / 1e3)}
+        runs.append({"grid": g, "block": block, "barriers": nbar,
+                     "span_us": float((ext.max() - arr.min()) / 1e3),
+                     "release_us": float((first_out - last_in).sum() / 1e3),
+                     "by_line": by_line})
+    # the buffers go with this call: later runs of the copy record nothing
+    if lib.split_setup(None, None, None, 0):
+        raise RuntimeError("split_setup failed")
+    runs.sort(key=lambda r: r["span_us"])
+    best = runs[len(runs) // 2]
+    t = torch.zeros(2, dtype=torch.int64, device=dev)
+    if lib.split_empty_launch(best["grid"], best["block"], 1000,
+                              t.data_ptr()):
+        raise RuntimeError("empty barrier launch failed")
+    best["bare_barrier_us"] = float((t[1] - t[0]).item() / 1e3 / 1000)
+    return best
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", default=str(
+        ROOT / "src" / "repro_torch" / "csrc" / "fused_assignment.cu"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    source = Path(args.source).resolve()
+    import torch
+    if not torch.cuda.is_available():
+        print("fused_chunk_split: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    k = cs.SIZES["fused_k"]
+    ops.build_kernels()
+    plain, timed = build(source, ops)
+    fig1_rng = cs.fig1_generator(torch, ops, args.seed, dev)
+    chunks = [("B=16, 1024^2, 3 stepped phases in",
+               lambda: cs.fused_assignment_chunk(
+                   torch, np.random.default_rng([args.seed, 2]), dev)),
+              ("B=1, 10000^2, from phase 280",
+               lambda: cs.fused_assignment_full_chunk(torch, ops, fig1_rng,
+                                                      dev))]
+    rows = []
+    for name, make in chunks:
+        c_int, s0, thr, cap, mv = make()
+        s0 = type(s0)(*(t.contiguous() for t in s0))
+        want = ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
+                                               m_valid=mv)
+        run = launcher(torch, plain, c_int, s0, thr, cap, mv, k)
+        run_timed = launcher(torch, timed, c_int, s0, thr, cap, mv, k)
+        same = [all(torch.equal(x, y) for x, y in zip(f(), want))
+                for f in (run, run_timed)]
+        ms = cs.cuda_ms(torch, run, reps=args.reps)
+        rounds = (want.rounds - s0.rounds).tolist()
+        row = {"chunk": name, "source": str(source), "ms": ms,
+               "phases": (want.phases - s0.phases).tolist(),
+               "rounds": rounds, "ms_per_round": ms / max(max(rounds), 1),
+               "free_rows_before": int((s0.match_ba < 0).sum()),
+               "same_state_as_kernel": same,
+               "split": split(torch, timed, run_timed, dev)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del c_int, s0, want
+        torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"card": cs.smi_line(), "rows": rows}, indent=1))
+    print(cs.smi_line())
+    return 0 if all(all(r["same_state_as_kernel"]) for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
