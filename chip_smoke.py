@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero:
      ``fused_assignment_phases`` also at full width: B = 1 on phase 3's
      Fig. 1 costs, one k = 8 chunk from phase 280 of that solve (reached
      on the fused route), against the plain version and the stepped
-     core;
+     core; ``fused_ot_phases`` also at full width: B = 1 at the OT
+     cell's size (n = 4096, eps = 0.05) from the initial state, the
+     whole solve in one chunk;
      ``sinkhorn_row_update`` at B = 1, 4096 x 4096 and at B = 8, 1024 x
      1000 (per-lane reg, ragged blocks, a zero-mass lane, half the lanes
      marked off by ``active_b``) within its stated tolerance;
@@ -94,6 +96,8 @@ SIZES = {
     # (n, eps, phase the chunk starts at), on phase 3's Fig. 1 costs
     "fused_assignment_full": (10_000, 0.01, 280),
     "fused_ot": (8, 512, 0.02, 2),
+    # (n, eps): the OT cell's solve, from the initial state
+    "fused_ot_full": (4096, 0.05),
     "fused_k": 8,
     # sinkhorn_row_update, phase 2: (B, m, n)
     "sinkhorn_row": [(1, 4096, 4096), (8, 1024, 1000)],
@@ -210,7 +214,7 @@ def main() -> int:
     # a copy of the main one draws phase 3's Fig. 1 points
     if not phase_fused_kernels(torch, ops, np.random.default_rng(
             [args.seed, 2]), dev, rows, kernel_rows,
-            fig1_rng=copy.deepcopy(rng)):
+            fig1_rng=copy.deepcopy(rng), seed=args.seed):
         return fail("a fused kernel disagreed with its plain version")
     if not phase_sinkhorn_kernel(torch, ops, np.random.default_rng(
             [args.seed, 3]), dev, rows, kernel_rows):
@@ -685,23 +689,19 @@ def fig1_generator(torch, ops, seed, dev):
 
 
 def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
-                        fig1_rng) -> bool:
+                        fig1_rng, seed) -> bool:
     """Each fused kernel for one k = 8 chunk from a state a few stepped
     phases in: Fig. 1-like point clouds (B lanes of n uniform points,
-    euclidean), and Dirichlet masses for OT. Then the assignment kernel
-    at full width (``fused_assignment_full_chunk``; ``fig1_rng`` draws
-    phase 3's points). ``ms_per_round`` divides the chunk's time by its
-    largest lane's rounds."""
-    from repro_torch.core.costs import build_cost_matrix
+    euclidean), and Dirichlet masses for OT. Then both kernels at full
+    width: the assignment kernel late in phase 3's solve
+    (``fused_assignment_full_chunk``; ``fig1_rng`` draws phase 3's
+    points), the OT kernel on the OT cell's whole solve
+    (``fused_ot_full_chunk``). ``ms_per_round`` divides the chunk's time
+    by its largest lane's rounds."""
     from repro_torch.core.pushrelabel import run_assignment_phases
-    from repro_torch.core.transport import (
-        init_ot_state, ot_phase_cap, ot_prologue, ot_termination_threshold,
-        run_ot_phases)
-    from repro_torch.kernels.fused_phase import (
-        fused_assignment_phases_ref, fused_ot_phases_ref)
+    from repro_torch.kernels.fused_phase import fused_assignment_phases_ref
 
     k = SIZES["fused_k"]
-    i32 = torch.int32
 
     c_int, s0, thr, cap, mv = fused_assignment_chunk(torch, rng, dev)
     row_a = _fused_row(
@@ -714,33 +714,9 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
         s0, c_int, k)
     del c_int, s0
 
-    b, n, eps, warm = SIZES["fused_ot"]
-    c = torch.stack([build_cost_matrix(
-        _points(rng, n), _points(rng, n), "euclidean", device=dev)
-        for _ in range(b)])
-    nu = rng.dirichlet(np.ones(n), b).astype(np.float32)
-    mu = rng.dirichlet(np.ones(n), b).astype(np.float32)
-    theta = np.float32(4.0 * n / eps)
-    theta_t = torch.full((b,), float(theta), dtype=torch.float32, device=dev)
-    eps_t = torch.full((b,), eps, dtype=torch.float32, device=dev)
-    c_int, s_int, d_int, _ = ot_prologue(
-        c, torch.as_tensor(nu, device=dev), torch.as_tensor(mu, device=dev),
-        theta_t, eps_t)
-    thr = torch.as_tensor(
-        [ot_termination_threshold(x, theta, eps) for x in nu], dtype=i32,
-        device=dev)
-    cap = torch.full((b,), ot_phase_cap(eps), dtype=i32, device=dev)
-    mr = 2 * n + 2
-    s0 = run_ot_phases(c_int, init_ot_state(s_int, d_int), thr, cap, warm,
-                       mr)
-    row_o = _fused_row(
-        torch, ops, "fused_ot_phases", (b, n, n),
-        lambda: ops.fused_run_ot_phases(c_int, s0, thr, cap, k, mr),
-        lambda: type(s0)(*fused_ot_phases_ref(
-            c_int, *s0, thr, cap, k=k, max_rounds=mr)),
-        lambda: run_ot_phases(c_int, s0, thr, cap, k, mr),
-        s0, c_int, k)
-    del c, c_int, s0
+    c_int, s0, thr, cap, mr = fused_ot_chunk(torch, rng, dev)
+    row_o = _ot_row(torch, ops, c_int, s0, thr, cap, mr, k)
+    del c_int, s0
     torch.cuda.empty_cache()
 
     # full width; the plain version takes ~0.4 s there, so it is timed once
@@ -758,12 +734,85 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
                  free_rows_before=int((s0.match_ba < 0).sum()))
     del c_int, s0
     torch.cuda.empty_cache()
-    for row in (row_a, row_o, row_f):
+
+    # the whole OT cell's solve in one chunk; the plain version is slow at
+    # 4096^2, so it is timed once
+    c_int, s0, thr, cap, mr = fused_ot_full_chunk(torch, seed, dev)
+    row_of = _ot_row(torch, ops, c_int, s0, thr, cap, mr, k, plain_reps=1)
+    del c_int, s0
+    torch.cuda.empty_cache()
+    done = (row_a, row_o, row_f, row_of)
+    for row in done:
         log(f"[2] {json.dumps(row)}")
         rows.append(row)
-        # the kernels line keeps the B = 16 row, as in earlier runs
+        # the kernels line keeps the B = 16 and B = 8 rows, as in earlier
+        # runs
         kernel_rows.setdefault(row["name"], row)
-    return row_a["ok"] and row_o["ok"] and row_f["ok"]
+    return all(row["ok"] for row in done)
+
+
+def _ot_row(torch, ops, c_int, s0, thr, cap, mr, k, plain_reps=3):
+    """``_fused_row`` of ``fused_ot_phases`` on one chunk."""
+    from repro_torch.core.transport import run_ot_phases
+    from repro_torch.kernels.fused_phase import fused_ot_phases_ref
+
+    return _fused_row(
+        torch, ops, "fused_ot_phases", tuple(c_int.shape),
+        lambda: ops.fused_run_ot_phases(c_int, s0, thr, cap, k, mr),
+        lambda: type(s0)(*fused_ot_phases_ref(
+            c_int, *s0, thr, cap, k=k, max_rounds=mr)),
+        lambda: run_ot_phases(c_int, s0, thr, cap, k, mr),
+        s0, c_int, k, plain_reps=plain_reps)
+
+
+def _ot_lanes(torch, rng, dev, b, n, eps):
+    """B lanes of the OT cell's kind: n uniform points each side,
+    euclidean, Dirichlet(1) masses, theta = 4n/eps. Returns ``(c_int,
+    initial state, threshold, phase_cap, max_rounds)``."""
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.transport import (
+        init_ot_state, ot_phase_cap, ot_prologue, ot_termination_threshold)
+
+    i32 = torch.int32
+    c = torch.stack([build_cost_matrix(
+        _points(rng, n), _points(rng, n), "euclidean", device=dev)
+        for _ in range(b)])
+    nu = rng.dirichlet(np.ones(n), b).astype(np.float32)
+    mu = rng.dirichlet(np.ones(n), b).astype(np.float32)
+    theta = np.float32(4.0 * n / eps)
+    theta_t = torch.full((b,), float(theta), dtype=torch.float32, device=dev)
+    eps_t = torch.full((b,), eps, dtype=torch.float32, device=dev)
+    c_int, s_int, d_int, _ = ot_prologue(
+        c, torch.as_tensor(nu, device=dev), torch.as_tensor(mu, device=dev),
+        theta_t, eps_t)
+    thr = torch.as_tensor(
+        [ot_termination_threshold(x, theta, eps) for x in nu], dtype=i32,
+        device=dev)
+    cap = torch.full((b,), ot_phase_cap(eps), dtype=i32, device=dev)
+    return c_int, init_ot_state(s_int, d_int), thr, cap, 2 * n + 2
+
+
+def fused_ot_chunk(torch, rng, dev):
+    """Phase 2's ``fused_ot_phases`` chunk: B lanes of the OT cell's kind
+    a few stepped phases in (``SIZES["fused_ot"]``). Returns ``(c_int,
+    state, threshold, phase_cap, max_rounds)``;
+    ``tools/fused_chunk_split.py`` times the same chunk."""
+    from repro_torch.core.transport import run_ot_phases
+
+    b, n, eps, warm = SIZES["fused_ot"]
+    c_int, s0, thr, cap, mr = _ot_lanes(torch, rng, dev, b, n, eps)
+    s0 = run_ot_phases(c_int, s0, thr, cap, warm, mr)
+    return c_int, s0, thr, cap, mr
+
+
+def fused_ot_full_chunk(torch, seed, dev):
+    """The same chunk at the OT cell's size (``SIZES["fused_ot_full"]``:
+    B = 1, n = 4096, eps = 0.05) from the initial state: one k = 8 chunk
+    is the whole solve. The inputs are phase 4's distribution drawn from
+    their own generator, ``default_rng([seed, 4])``."""
+    n, eps = SIZES["fused_ot_full"]
+    return _ot_lanes(torch, np.random.default_rng([seed, 4]), dev, 1, n,
+                     eps)
 
 
 def phase_fused(torch, ops, rdev, dev, record, ctx, launches) -> bool:

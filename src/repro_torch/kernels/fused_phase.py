@@ -30,10 +30,11 @@ The CUDA kernels are ``csrc/fused_assignment.cu`` and ``csrc/fused_ot.cu``
 (``kernels/ops.py`` launches them). What bounds them on an H100: the
 propose scan reads ``c_int`` once per round for every row that still
 proposes (4 bytes per element), so a chunk is bound by those bytes at the
-HBM rate; the OT kernel also reads and writes the two flow matrices once
-per phase. They wait at grid-wide barriers (the assignment kernel at one
-per propose round, the OT kernel at two), whose cost grows with the
-rounds, not with the bytes.
+HBM rate; the OT kernel also copies the two flow matrices in and out once
+per launch, and per phase touches them only in the row tiles of the
+columns that granted. They wait at grid-wide barriers (the assignment
+kernel at one per propose round, the OT kernel at two), whose cost grows
+with the rounds, not with the bytes.
 """
 from __future__ import annotations
 

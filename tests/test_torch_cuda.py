@@ -243,6 +243,81 @@ def test_fused_ot_kernel_equals_plain(dev, b, nb, na, k):
         assert _states_equal(got, ref)
 
 
+# (b, nb, na, k, chunks, oracle): what the redesigned fused_ot.cu (lists
+# of live proposers, end-of-phase work limited to the column groups that
+# granted, strips over row tiles of 64) can get wrong. "plain" holds the
+# kernel against fused_ot_phases_ref, "stepped" against run_ot_phases on
+# the card (the plain version is too slow at 4096^2).
+FUSED_OT_CASES = {
+    # eps 0.05 / 0.1 / 0.08 lanes: they end in different phases and rounds
+    "lanes_end_in_different_phases": (6, 96, 96, 4, 5, "plain"),
+    # lane 0's threshold is already met: it takes no phase
+    "lane_below_threshold": (3, 64, 64, 3, 4, "plain"),
+    "nb_above_na": (3, 120, 72, 4, 4, "plain"),
+    "na_above_nb": (3, 72, 120, 4, 4, "plain"),
+    # na % 4 != 0: the 4-byte scan
+    "unaligned_na": (4, 64, 47, 5, 4, "plain"),
+    # 24 row tiles, more rows than a grant tile of 1024, two column
+    # groups: strips reach above the bottom tile
+    "strip_across_row_tiles": (2, 1500, 40, 8, 3, "plain"),
+    # emptied hi clusters collapse (ya_hi falls)
+    "columns_collapse": (3, 64, 64, 4, 6, "plain"),
+    # k above every lane's phase cap: each lane stops on its own
+    "k_above_cap": (3, 20, 24, 0, 1, "plain"),
+    # the OT cell's width
+    "full_width": (1, 4096, 4096, 8, 1, "stepped"),
+}
+
+
+def _check_fused_ot_case(dev, case, kernel):
+    """Runs FUSED_OT_CASES[case] chunk by chunk through ``kernel`` (the
+    signature of ``ops.fused_run_ot_phases``) against its oracle and
+    asserts that the case exercised what it names."""
+    from repro_torch.core.transport import run_ot_phases
+    from repro_torch.kernels.fused_phase import fused_ot_phases_ref
+
+    b, nb, na, k, chunks, oracle = FUSED_OT_CASES[case]
+    (c, thr, cap), got = _fused_ot_inputs(dev, b, nb, na, b * nb + na)
+    if case == "lane_below_threshold":
+        thr[0] = int(got.free_b[0].sum())
+    k = k or int(cap.max()) + 1
+    mr = nb + na + 2
+    ref = got
+    strips_above = 0
+    for _ in range(chunks):
+        before = got
+        got = kernel(c, got, thr, cap, k, mr)
+        if oracle == "plain":
+            ref = type(ref)(*fused_ot_phases_ref(c, *ref, thr, cap, k=k,
+                                                 max_rounds=mr))
+        else:
+            ref = run_ot_phases(c, ref, thr, cap, k, mr)
+        assert _states_equal(got, ref)
+        # f_hi fell above the bottom row tile in a column that kept its
+        # level: a strip crossed a tile boundary
+        kept = (got.ya_hi == before.ya_hi)[:, None, :]
+        fell = (got.f_hi < before.f_hi) & kept
+        strips_above += int(fell[:, :nb - 64].sum())
+    phases = got.phases.tolist()
+    assert max(phases) > 0
+    if case == "lanes_end_in_different_phases":
+        assert len(set(phases)) > 1 and len(set(got.rounds.tolist())) > 1
+    if case == "lane_below_threshold":
+        assert phases[0] == 0 and max(phases[1:]) > 0
+    if case == "k_above_cap":
+        assert all(p < k for p in phases)
+    if case == "columns_collapse":
+        assert bool((got.ya_hi < 0).any())
+    if case == "strip_across_row_tiles":
+        assert strips_above > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUSED_OT_CASES))
+def test_fused_ot_kernel_design_cases(dev, case):
+    _check_fused_ot_case(dev, case, ops.fused_run_ot_phases)
+
+
 @pytest.mark.cuda
 def test_fused_wrappers_refuse_bad_operands(dev):
     from repro_torch.core.pushrelabel import init_assignment_state

@@ -341,3 +341,118 @@ def test_round_proposers_only_shrink(monkeypatch, m, n, m_valid, seed):
             checked += int(again.sum())
     # some row did propose again after losing a round
     assert checked > 0
+
+
+def _ot_phase_log(monkeypatch, nb, na, seed):
+    """The stepped OT core run one phase per call (k = 1 chains to the
+    same trajectory) on a 3-lane batch with mixed eps. Returns, per call,
+    ``(state before, state after, rounds)`` where ``rounds`` holds each
+    propose round's ``(tgt (B, nb), grant (B, nb))`` (``tgt == na``: the
+    row did not propose)."""
+    from repro_torch.core import transport
+
+    c_int, s_int, d_int, thr, cap = _ot_batch(nb, na, seed)
+    tc, tthr, tcap = _t(c_int, thr, cap)
+    rounds = []
+    orig = transport._grant_round
+
+    def grant_round(*a):
+        tgt, grant, any_prop = orig(*a)
+        rounds.append((tgt.clone(), grant.clone()))
+        return tgt, grant, any_prop
+
+    monkeypatch.setattr(transport, "_grant_round", grant_round)
+    log = []
+    state = init_ot_state(*_t(s_int, d_int))
+    for _ in range(int(cap.max()) + 1):
+        rounds.clear()
+        after = run_ot_phases(tc, state, tthr, tcap, 1, nb + na + 2)
+        if torch.equal(after.phases, state.phases):
+            break
+        log.append((state, after, list(rounds)))
+        state = after
+    assert len(log) > 2
+    return log
+
+
+def _granted(rounds, b, nb, na):
+    """(B, na) units each column granted over a phase's rounds."""
+    g_a = torch.zeros((b, na + 1), dtype=torch.int64)
+    for tgt, grant in rounds:
+        g_a.scatter_add_(1, tgt.long(), grant.long())
+    return g_a[:, :na]
+
+
+@pytest.mark.parametrize("nb,na", OT_SHAPES)
+def test_ot_round_proposers_only_shrink(monkeypatch, nb, na):
+    """The premise of fused_ot.cu's lists of live proposers: within a
+    phase, the rows that propose in round r + 1 are among those that
+    proposed in round r (y_b and ya_hi are fixed in a phase, the supply
+    left and the capacity only fall)."""
+    checked = 0
+    for _, _, rounds in _ot_phase_log(monkeypatch, nb, na, 31 * nb + na):
+        for (before, _), (after, _) in zip(rounds, rounds[1:]):
+            again = after < na
+            assert not bool((again & (before >= na)).any())
+            checked += int(again.sum())
+    assert checked > 0
+
+
+@pytest.mark.parametrize("nb,na", OT_SHAPES)
+def test_ot_ungranted_columns_unchanged(monkeypatch, nb, na):
+    """The premise of limiting the end-of-phase work to the columns that
+    granted: a column with no grant in a phase keeps its f_hi and f_lo
+    columns, ya_hi and free_a."""
+    checked = 0
+    for s0, s1, rounds in _ot_phase_log(monkeypatch, nb, na, 37 * nb + na):
+        idle = _granted(rounds, 3, nb, na) == 0
+        for f in ("f_hi", "f_lo"):
+            same = (getattr(s0, f) == getattr(s1, f)).all(dim=1)
+            assert bool(same[idle].all()), f
+        for f in ("ya_hi", "free_a"):
+            assert torch.equal(getattr(s0, f)[idle], getattr(s1, f)[idle]), f
+        checked += int(idle.sum())
+    assert checked > 0
+
+
+@pytest.mark.parametrize("nb,na", OT_SHAPES)
+def test_ot_strip_closed_form_column_sum(monkeypatch, nb, na):
+    """The closed form fused_ot.cu writes for a column that does not
+    collapse: its new f_hi sum is fsum - min(max(disp, 0), fsum), with
+    disp the granted units beyond the free hi-cluster demand; and some
+    strips take flow."""
+    stripped = 0
+    for s0, s1, rounds in _ot_phase_log(monkeypatch, nb, na, 41 * nb + na):
+        g_a = _granted(rounds, 3, nb, na)
+        hi_free = torch.where(s0.ya_hi == 0, s0.free_a, 0).long()
+        disp = g_a - torch.minimum(g_a, hi_free)
+        fsum = s0.f_hi.sum(dim=1).long()
+        kept = s1.ya_hi == s0.ya_hi
+        want = fsum - torch.minimum(disp.clamp_min(0), fsum)
+        got = s1.f_hi.sum(dim=1).long()
+        assert torch.equal(got[kept], want[kept])
+        stripped += int((kept & (want < fsum)).sum())
+    assert stripped > 0
+
+
+@pytest.mark.parametrize("nb,na", OT_SHAPES)
+def test_ot_grant_cells_bounded_by_proposals(monkeypatch, nb, na):
+    """fused_ot.cu folds each grant into f_lo as it is made: a row gets
+    at most one grant per round, so the cells it writes in a phase are at
+    most the phase's proposals; and the grants of a phase are what f_lo
+    and f_hi gained in the cells, summed with the stripped flow."""
+    for s0, s1, rounds in _ot_phase_log(monkeypatch, nb, na, 43 * nb + na):
+        proposals = sum(int((tgt < na).sum()) for tgt, _ in rounds)
+        cells = torch.zeros((3, nb, na + 1), dtype=torch.bool)
+        for tgt, grant in rounds:
+            cells |= (torch.nn.functional.one_hot(tgt.long(), na + 1).bool()
+                      & (grant > 0)[:, :, None])
+        assert int(cells[:, :, :na].sum()) <= proposals
+        # flow conservation per lane: granted units are new flow, the
+        # stripped units went back to free supply
+        flow0 = (s0.f_hi + s0.f_lo).sum(dim=(1, 2)).long()
+        flow1 = (s1.f_hi + s1.f_lo).sum(dim=(1, 2)).long()
+        granted = _granted(rounds, 3, nb, na).sum(dim=1)
+        freed = (s1.free_b.sum(1) - s0.free_b.sum(1)).long() + granted
+        ran = s1.phases > s0.phases
+        assert torch.equal((flow1 - flow0)[ran], (granted - freed)[ran])

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Time one ``fused_assignment_phases`` chunk and split it at its grid
-barriers, on the two chunks of ``chip_smoke.py`` phase 2.
+"""Time one fused chunk (``fused_assignment_phases`` or
+``fused_ot_phases``) and split it at its grid barriers, on the chunks of
+``chip_smoke.py`` phase 2.
 
-    python3 tools/fused_chunk_split.py [--source FILE] [--seed 0]
+    python3 tools/fused_chunk_split.py [--kernel assignment|ot]
+                                       [--source FILE] [--seed 0]
                                        [--reps 10] [--out FILE]
 
-The chunks are chip_smoke's own, built by its helpers from the same seed
-(``fused_assignment_chunk``, ``fused_assignment_full_chunk``): B = 16
-lanes of 1024 x 1024 three stepped phases in, and B = 1 on phase 3's
-Fig. 1 costs (n = 10 000, eps = 0.01) from phase 280; one k = 8 chunk
-each. To draw phase 3's points the tool runs chip_smoke's phase-2 kernel
-checks first, as chip_smoke does.
+The chunks are chip_smoke's own, built by its helpers from the same seed:
 
-``--source`` names the ``fused_assignment.cu`` to measure (default: this
-checkout's). Pass another version's, for example the parent commit
-unpacked with ``git archive``, to compare two versions on one card: one
-run per source, alternating. Its headers are read from its own
-directory, and nothing else of its tree is read; it must keep this
-checkout's C entry point (``kernels/ops.py``). The tool compiles the
-source twice into this checkout's ``build/fused_chunk_split/``:
+- ``--kernel assignment`` (the default; ``fused_assignment_chunk``,
+  ``fused_assignment_full_chunk``): B = 16 lanes of 1024 x 1024 three
+  stepped phases in, and B = 1 on phase 3's Fig. 1 costs (n = 10 000,
+  eps = 0.01) from phase 280. To draw phase 3's points the tool runs
+  chip_smoke's phase-2 kernel checks first, as chip_smoke does.
+- ``--kernel ot`` (``fused_ot_chunk``, ``fused_ot_full_chunk``): B = 8
+  lanes of 512 x 512 two stepped phases in (the assignment chunk is
+  drawn first from the same generator, as in chip_smoke, and dropped),
+  and B = 1 at n = 4096, eps = 0.05 from the initial state (the OT
+  cell's whole solve).
+
+One k = 8 chunk each. ``--source`` names the ``fused_assignment.cu`` or
+``fused_ot.cu`` to measure (default: this checkout's). Pass another
+version's, for example the parent commit unpacked with ``git archive``,
+to compare two versions on one card: one run per source, alternating.
+Its headers are read from its own directory, and nothing else of its
+tree is read; it must keep this checkout's C entry point
+(``kernels/ops.py``). The tool compiles the source twice into this
+checkout's ``build/fused_chunk_split/``:
 
 - as it stands, for the chunk's time (median of ``reps`` CUDA-event
   timings);
@@ -29,10 +38,12 @@ source twice into this checkout's ``build/fused_chunk_split/``:
   the first exit minus the last arrival. Works are summed by the
   barrier's line in the source.
 
-Both copies must give the state of this checkout's kernel, which the
-tool checks. An empty cooperative kernel of the same grid gives the cost
-of one bare barrier. Prints one JSON line per chunk. Needs one CUDA
-device and ``nvcc``.
+Both copies must give the state of this checkout's kernel (through
+``ops.fused_run_*_phases``), which the tool checks. A chunk that passes
+more than ``MAX_BARRIERS`` barriers, or a grid of more than
+``MAX_BLOCKS`` blocks, is an error, not a shorter record. An empty
+cooperative kernel of the same grid gives the cost of one bare barrier.
+Prints one JSON line per chunk. Needs one CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-MAX_BARRIERS = 1024
+MAX_BARRIERS = 4096
 MAX_BLOCKS = 2048
 
 # defined ahead of the source; "#line 1" keeps its line numbers
@@ -133,9 +144,15 @@ def instrument(src: str) -> str:
     return _PRELUDE % {"blocks": MAX_BLOCKS} + body + _EPILOGUE
 
 
-def build(source: Path, ops):
-    """Compiles ``source`` as it stands and instrumented, in parallel;
-    returns the two loaded libraries (plain, timed)."""
+# --kernel -> (kernel name in ops, default source)
+KERNELS = {"assignment": ("fused_assignment_phases", "fused_assignment.cu"),
+           "ot": ("fused_ot_phases", "fused_ot.cu")}
+
+
+def build(source: Path, ops, name: str):
+    """Compiles ``source`` (the kernel ``name`` of ``ops``) as it stands
+    and instrumented, in parallel; returns the two loaded libraries
+    (plain, timed)."""
     out = ROOT / "build" / "fused_chunk_split"
     out.mkdir(parents=True, exist_ok=True)
     digest = hashlib.sha256((ops.source_digest(source) + _PRELUDE
@@ -154,12 +171,13 @@ def build(source: Path, ops):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{log}")
     libs = []
-    _, fn_name, argtypes = ops._ENTRY["fused_assignment_phases"]
+    _, fn_name, argtypes = ops._ENTRY[name]
     for _, so in jobs:
         lib = ctypes.CDLL(str(so))
         getattr(lib, fn_name).argtypes = argtypes
-        lib.fused_assignment_workspace.argtypes = [ctypes.c_int] * 3
-        lib.fused_assignment_workspace.restype = ctypes.c_longlong
+        ws = getattr(lib, ops._WORKSPACE[name])
+        ws.argtypes = [ctypes.c_int] * 3
+        ws.restype = ctypes.c_longlong
         libs.append(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     libs[1].split_setup.argtypes = [p, p, p, i]
@@ -190,6 +208,27 @@ def launcher(torch, lib, c_int, s0, thr, cap, mv, k):
     return run
 
 
+def ot_launcher(torch, lib, c_int, s0, thr, cap, mr, k):
+    """``fused_ot_launch`` of ``lib`` on one chunk, as
+    ``ops.fused_run_ot_phases`` calls it; returns a function that runs
+    it and returns the state out."""
+    b, nb, na = c_int.shape
+    ws = torch.empty(int(lib.fused_ot_workspace(b, nb, na)),
+                     dtype=torch.uint8, device=c_int.device)
+    vec = int(na % 4 == 0 and c_int.data_ptr() % 16 == 0)
+
+    def run():
+        out = [torch.empty_like(t) for t in s0]
+        err = lib.fused_ot_launch(
+            c_int.data_ptr(), *(t.data_ptr() for t in s0), thr.data_ptr(),
+            cap.data_ptr(), *(t.data_ptr() for t in out), ws.data_ptr(), b,
+            nb, na, k, mr, vec, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_ot_launch failed ({err})")
+        return type(s0)(*out)
+    return run
+
+
 def split(torch, lib, run, dev):
     """The per-line split of one instrumented run (the median of 7 by
     span) and the cost of a bare barrier on the same grid."""
@@ -210,7 +249,10 @@ def split(torch, lib, run, dev):
             raise RuntimeError("split_result failed")
         nbar, g, block = res
         if nbar > MAX_BARRIERS or g > MAX_BLOCKS:
-            raise RuntimeError("fused_chunk_split: buffers too small")
+            raise RuntimeError(
+                f"fused_chunk_split: the chunk passed {nbar} barriers on "
+                f"{g} blocks; the record holds {MAX_BARRIERS} barriers of "
+                f"{MAX_BLOCKS} blocks (raise MAX_BARRIERS / MAX_BLOCKS)")
         arr = t_arr[:nbar * g].view(nbar, g).cpu().numpy()
         ext = t_exit[:nbar * g].view(nbar, g).cpu().numpy()
         tags = lines[:nbar].cpu().numpy()
@@ -241,15 +283,53 @@ def split(torch, lib, run, dev):
     return best
 
 
+def chunks(torch, cs, ops, kernel, seed, dev):
+    """(name, chunk maker, launcher, the state of this checkout's kernel)
+    for each of chip_smoke's chunks of ``kernel``."""
+    k = cs.SIZES["fused_k"]
+    if kernel == "assignment":
+        fig1_rng = cs.fig1_generator(torch, ops, seed, dev)
+
+        def want(c_int, s0, thr, cap, mv):
+            return ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
+                                                   m_valid=mv)
+        return [("B=16, 1024^2, 3 stepped phases in",
+                 lambda: cs.fused_assignment_chunk(
+                     torch, np.random.default_rng([seed, 2]), dev),
+                 launcher, want),
+                ("B=1, 10000^2, from phase 280",
+                 lambda: cs.fused_assignment_full_chunk(torch, ops, fig1_rng,
+                                                        dev),
+                 launcher, want)]
+
+    def want(c_int, s0, thr, cap, mr):
+        return ops.fused_run_ot_phases(c_int, s0, thr, cap, k, mr)
+
+    def b8():
+        # chip_smoke draws the assignment chunk from this generator first
+        rng = np.random.default_rng([seed, 2])
+        cs.fused_assignment_chunk(torch, rng, dev)
+        torch.cuda.empty_cache()
+        return cs.fused_ot_chunk(torch, rng, dev)
+    return [("B=8, 512^2, 2 stepped phases in", b8, ot_launcher, want),
+            ("B=1, 4096^2, from the initial state",
+             lambda: cs.fused_ot_full_chunk(torch, seed, dev), ot_launcher,
+             want)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", default=str(
-        ROOT / "src" / "repro_torch" / "csrc" / "fused_assignment.cu"))
+    ap.add_argument("--kernel", choices=sorted(KERNELS),
+                    default="assignment")
+    ap.add_argument("--source", default="",
+                    help="the kernel's .cu (default: this checkout's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
-    source = Path(args.source).resolve()
+    name, default_cu = KERNELS[args.kernel]
+    source = Path(args.source or ROOT / "src" / "repro_torch" / "csrc"
+                  / default_cu).resolve()
     import torch
     if not torch.cuda.is_available():
         print("fused_chunk_split: needs a CUDA device", file=sys.stderr)
@@ -262,32 +342,28 @@ def main() -> int:
     dev = torch.device("cuda")
     k = cs.SIZES["fused_k"]
     ops.build_kernels()
-    plain, timed = build(source, ops)
-    fig1_rng = cs.fig1_generator(torch, ops, args.seed, dev)
-    chunks = [("B=16, 1024^2, 3 stepped phases in",
-               lambda: cs.fused_assignment_chunk(
-                   torch, np.random.default_rng([args.seed, 2]), dev)),
-              ("B=1, 10000^2, from phase 280",
-               lambda: cs.fused_assignment_full_chunk(torch, ops, fig1_rng,
-                                                      dev))]
+    plain, timed = build(source, ops, name)
     rows = []
-    for name, make in chunks:
-        c_int, s0, thr, cap, mv = make()
+    for chunk, make, launch, want_of in chunks(torch, cs, ops, args.kernel,
+                                               args.seed, dev):
+        c_int, s0, thr, cap, extra = make()
         s0 = type(s0)(*(t.contiguous() for t in s0))
-        want = ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
-                                               m_valid=mv)
-        run = launcher(torch, plain, c_int, s0, thr, cap, mv, k)
-        run_timed = launcher(torch, timed, c_int, s0, thr, cap, mv, k)
+        want = want_of(c_int, s0, thr, cap, extra)
+        run = launch(torch, plain, c_int, s0, thr, cap, extra, k)
+        run_timed = launch(torch, timed, c_int, s0, thr, cap, extra, k)
         same = [all(torch.equal(x, y) for x, y in zip(f(), want))
                 for f in (run, run_timed)]
         ms = cs.cuda_ms(torch, run, reps=args.reps)
         rounds = (want.rounds - s0.rounds).tolist()
-        row = {"chunk": name, "source": str(source), "ms": ms,
-               "phases": (want.phases - s0.phases).tolist(),
+        row = {"kernel": name, "chunk": chunk, "source": str(source),
+               "ms": ms, "phases": (want.phases - s0.phases).tolist(),
                "rounds": rounds, "ms_per_round": ms / max(max(rounds), 1),
-               "free_rows_before": int((s0.match_ba < 0).sum()),
                "same_state_as_kernel": same,
                "split": split(torch, timed, run_timed, dev)}
+        if args.kernel == "assignment":
+            row["free_rows_before"] = int((s0.match_ba < 0).sum())
+        else:
+            row["free_rows_before"] = int((s0.free_b > 0).sum())
         print(json.dumps(row), flush=True)
         rows.append(row)
         del c_int, s0, want
