@@ -25,6 +25,12 @@ Phases, in order; any failure exits non-zero:
      ``sinkhorn_row_update`` at B = 1, 4096 x 4096 and at B = 8, 1024 x
      1000 (per-lane reg, ragged blocks, a zero-mass lane, half the lanes
      marked off by ``active_b``) within its stated tolerance;
+     ``slack_propose`` also on the rounds the stepped route runs: round 0
+     of phase 280 of phase 3's Fig. 1 solve (169 live rows), of an
+     earlier phase with a few thousand, and a B = 16, 1024 x 1024 batch
+     with 5 % of the rows live. Every kernel's time is device time
+     (``cuda_ms``), cross-checked by ``torch.profiler``
+     (``profiler_ms``);
   3. ``solve(ASSIGNMENT)`` at the paper's size (Fig. 1: n = 10 000 points
      in the unit square, euclidean, eps = 0.01) under the default policy
      and under ``guaranteed=True``, with their certificates and the
@@ -99,6 +105,10 @@ SIZES = {
     # (n, eps): the OT cell's solve, from the initial state
     "fused_ot_full": (4096, 0.05),
     "fused_k": 8,
+    # slack_propose on the stepped route's rounds, phase 2: the Fig. 1
+    # round with at most mid_free free rows, and (B, m, n, share of rows
+    # active) of a batch
+    "propose_rounds": {"mid_free": 4000, "batch": (16, 1024, 1024, 0.05)},
     # sinkhorn_row_update, phase 2: (B, m, n)
     "sinkhorn_row": [(1, 4096, 4096), (8, 1024, 1000)],
 }
@@ -142,21 +152,110 @@ def fail(msg: str) -> int:
     return 1
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
-    for _ in range(warmup):
+FLUSH_BYTES = 256 << 20        # read before a cold call: > the 50 MB L2
+_TIMING: dict = {}
+
+
+def _spacer(torch, host_s: float, cold: bool) -> None:
+    """Enqueue what the card runs just before a timed call: a spin
+    (``torch.cuda._sleep``) of twice ``host_s`` plus 50 us (at most 20 ms),
+    then, if ``cold``, a read of a ``FLUSH_BYTES`` scratch."""
+    st = _TIMING.get("state")
+    if st is None:
+        flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        b.synchronize()
+        st = _TIMING["state"] = {"flush": flush,
+                                 "cycles_per_s": 1e9 / a.elapsed_time(b)}
+    spin_s = min(2 * host_s + 50e-6, 20e-3)
+    torch.cuda._sleep(int(spin_s * st["cycles_per_s"]))
+    if cold:
+        st["flush"].sum()
+
+
+def _warm_up(torch, fn, warmup: int) -> float:
+    """Run ``fn()`` ``warmup`` times (at least once); the host seconds the
+    last call took to return, which is what the spacer must cover."""
+    host = 0.0
+    for _ in range(max(warmup, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host = time.perf_counter() - t0
     torch.cuda.synchronize()
+    return host
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2, cold: bool = True
+            ) -> float:
+    """Median device time in ms of ``fn()`` over ``reps`` calls, each
+    bracketed by two CUDA events, after ``warmup`` calls.
+
+    Before each first event the stream gets a spacer: a spin of twice the
+    host time of one call, then (``cold``) a read of 256 MB. The card
+    reaches the first event only after the host has enqueued the call and
+    the second event, so the interval holds the call's kernels and the
+    gaps between them on the card, not the wrapper's host work (checks,
+    allocations, the ctypes call). Recorded on an idle card, the first
+    event would let that host work into the interval, most of it for a
+    kernel of a few tens of us. A function that reads the device
+    from the host (the stepped cores) still waits on it inside the
+    interval.
+
+    The L2 is cold (the read evicts the call's operands; its lines are
+    clean, so evicting them writes nothing), as the bounds assume: every
+    operand byte read from HBM once. On their routes: ``slack_propose``'s
+    operands exceed the L2 except in late rounds (169 live rows of
+    10 000: 6.8 MB), whose rows the previous round read, with only (B, m)
+    and (B, n) vectors touched between; those rows carry a ``warm_ms``
+    (``cold=False``) beside. ``cost_matrix`` reads kilobytes and writes
+    B m n floats, so the L2 does not matter. A fused chunk's c_int stays
+    in L2 across the chunks of a solve only at B = 8, 512^2 (8 MB).
+    ``sinkhorn_row_update`` follows the column update, which reads all of
+    c (32-64 MB here), so at most c's tail is warm."""
+    host = _warm_up(torch, fn, warmup)
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        _spacer(torch, host, cold)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_us(evt) -> float:
+    """Device microseconds of one ``key_averages()`` entry."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profiler_ms(torch, fn, kernel: str, reps: int = 5, cold: bool = True):
+    """The cross-check of ``cuda_ms``: mean device time in ms, per call
+    of ``fn()``, of the CUDA kernels whose name contains ``kernel``, as
+    ``torch.profiler`` records them (CUPTI's start and end of each
+    kernel), with the same spacer before each call. None if the profiler
+    saw no such kernel."""
+    host = _warm_up(torch, fn, 1)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            _spacer(torch, host, cold)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def smi_line() -> str:
@@ -219,6 +318,11 @@ def main() -> int:
     if not phase_sinkhorn_kernel(torch, ops, np.random.default_rng(
             [args.seed, 3]), dev, rows, kernel_rows):
         return fail("sinkhorn_row_update disagreed with its plain version")
+    if not phase_propose_rounds(torch, ops, copy.deepcopy(rng),
+                                np.random.default_rng([args.seed, 5]), dev,
+                                rows):
+        return fail("slack_propose disagreed with its plain version on "
+                    "the route's rounds")
     log(f"[2] done at {time.monotonic() - t_start:.0f} s")
 
     # -- 3-5: the stepped route, counted --------------------------------
@@ -292,61 +396,108 @@ def main() -> int:
     return 0
 
 
-def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
-    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
+def propose_bound(b: int, m: int, n: int, n_active: int):
+    """``(bound_ms, bound_by)`` of one ``slack_propose`` launch: bytes, the
+    live rows of c_int read once (4 n per row) and the vectors (y_b,
+    active, y_a, avail, salt) read once, the outputs (12 B per row)
+    written once, over the HBM rate; operations, 3 int32 (add, compare,
+    select) per element of the live rows, over the int32 rate."""
+    nbytes = (4 * n_active * n + 4 * b * m + 4 * b * n + b * n + b * m
+              + 4 * b + 12 * b * m)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * n_active * n / INT32_OP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _propose_row(torch, ops, kargs, active, reps=20, **extra):
+    """``slack_propose`` on one set of operands against its plain version:
+    equality bit for bit (col and key), the kernel's time (cold, warm
+    and under the profiler), the plain version's, and the bound."""
     from repro_torch.kernels.slack_propose import slack_propose_ref
 
-    ok_all = True
-    # slack_propose: duals drawn so y_b + y_a - 1 lies in [0, 32) and c in
-    # [0, 32): about 1/32 of the (available) edges are admissible
+    c, y_b, y_a, avail, salt = kargs
+    b, m, n = c.shape
+    col, key = ops.slack_propose_batched(*kargs, active_b=active)
+    rcol, rkey = slack_propose_ref(*kargs, active)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(col, rcol) and torch.equal(key, rkey))
+    adm = float(((y_b[:, :, None] + y_a[:, None, :] == c + 1)
+                 & avail[:, None, :]).float().mean())
+
+    def kernel():
+        return ops.slack_propose_batched(*kargs, active_b=active)
+    ms = cuda_ms(torch, kernel, reps=reps)
+    warm_ms = cuda_ms(torch, kernel, reps=reps, cold=False)
+    prof_ms = profiler_ms(torch, kernel, "slack_propose_kernel")
+    plain_ms = cuda_ms(torch, lambda: slack_propose_ref(*kargs, active),
+                       reps=3, warmup=1)
+    n_active = int(active.sum())
+    bound_ms, bound_by = propose_bound(b, m, n, n_active)
+    row = {"name": "slack_propose", "shape": [b, m, n], **extra,
+           "active_rows": n_active, "admissible_frac": adm, "ok": ok,
+           "max_abs_err": float((col - rcol).abs().max()), "ms": ms,
+           "warm_ms": warm_ms, "profiler_ms": prof_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "proposing_rows": int((col >= 0).sum())}
+    log(f"[2] {json.dumps(row)}")
+    return row
+
+
+def _propose_arrays(rng, b, m, n, active_frac):
+    """Random ``slack_propose`` operands as numpy arrays ``(c, y_b, y_a,
+    avail, salt, active)``: duals drawn so y_b + y_a - 1 lies in [0, 32)
+    and c in [0, 32), so about 1/32 of the (available) edges are
+    admissible; each row active with probability ``active_frac``."""
+    c = rng.integers(0, 32, (b, m, n), dtype=np.int32)
+    y_b = rng.integers(1, 17, (b, m), dtype=np.int32)
+    y_a = rng.integers(0, 16, (b, n), dtype=np.int32)
+    avail = rng.uniform(size=(b, n)) < 0.9
+    active = rng.uniform(size=(b, m)) < active_frac
+    salt = rng.integers(0, 2**31 - 1, b, dtype=np.int32)
+    return c, y_b, y_a, avail, salt, active
+
+
+def _propose_operands(torch, rng, dev, b, m, n, active_frac):
+    """``_propose_arrays`` on ``dev``: ``(kargs, active)``."""
+    *kargs, active = (torch.as_tensor(a, device=dev) for a in
+                      _propose_arrays(rng, b, m, n, active_frac))
+    return tuple(kargs), active
+
+
+def _cost_arrays(rng, b, m, n, d):
+    return (rng.uniform(size=(b, m, d)).astype(np.float32),
+            rng.uniform(size=(b, n, d)).astype(np.float32))
+
+
+def skip_kernel_draws(rng):
+    """Advance ``rng`` past what ``phase_kernels`` draws from it, without
+    running a kernel."""
     for b, m, n in SIZES["slack_propose"]:
-        c = torch.as_tensor(rng.integers(0, 32, (b, m, n), dtype=np.int32),
-                            device=dev)
-        y_b = torch.as_tensor(rng.integers(1, 17, (b, m), dtype=np.int32),
-                              device=dev)
-        y_a = torch.as_tensor(rng.integers(0, 16, (b, n), dtype=np.int32),
-                              device=dev)
-        avail = torch.as_tensor(rng.uniform(size=(b, n)) < 0.9, device=dev)
-        active = torch.as_tensor(rng.uniform(size=(b, m)) < 0.95,
-                                 device=dev)
-        salt = torch.as_tensor(rng.integers(0, 2**31 - 1, b,
-                                            dtype=np.int32), device=dev)
-        kargs = (c, y_b, y_a, avail, salt)
-        col, key = ops.slack_propose_batched(*kargs, active_b=active)
-        rcol, rkey = slack_propose_ref(*kargs, active)
-        torch.cuda.synchronize()
-        ok = bool(torch.equal(col, rcol) and torch.equal(key, rkey))
-        adm = float(((y_b[:, :, None] + y_a[:, None, :] == c + 1)
-                     & avail[:, None, :]).float().mean())
-        ms = cuda_ms(torch, lambda: ops.slack_propose_batched(
-            *kargs, active_b=active), reps=20)
-        plain_ms = cuda_ms(torch, lambda: slack_propose_ref(*kargs, active),
-                           reps=3, warmup=1)
-        n_active = int(active.sum())
-        nbytes = (4 * n_active * n + 4 * b * m + 4 * b * n + b * n + b * m
-                  + 4 * b + 12 * b * m)
-        nops = 3 * n_active * n   # add, compare, select per element read
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / INT32_OP_PER_S
-        row = {"name": "slack_propose", "shape": [b, m, n],
-               "admissible_frac": adm, "ok": ok,
-               "max_abs_err": float((col - rcol).abs().max()), "ms": ms,
-               "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "proposing_rows": int((col >= 0).sum())}
-        log(f"[2] {json.dumps(row)}")
+        _propose_arrays(rng, b, m, n, 0.95)
+    for _, b, m, n, d in SIZES["cost_matrix"]:
+        _cost_arrays(rng, b, m, n, d)
+
+
+def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
+    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
+
+    ok_all = True
+    # slack_propose with 95 % of the rows active
+    for b, m, n in SIZES["slack_propose"]:
+        kargs, active = _propose_operands(torch, rng, dev, b, m, n, 0.95)
+        row = _propose_row(torch, ops, kargs, active, round="dense")
         rows.append(row)
-        ok_all &= ok
+        ok_all &= row["ok"]
         kernel_rows.setdefault("slack_propose", row)
-        del c, col, key, rcol, rkey
+        del kargs, active
         torch.cuda.empty_cache()
 
     # cost_matrix: every metric at the 2-D shapes, l1 on 784-d images
     for metric, b, m, n, d in SIZES["cost_matrix"]:
-        x = torch.as_tensor(rng.uniform(size=(b, m, d)).astype(np.float32),
-                            device=dev)
-        y = torch.as_tensor(rng.uniform(size=(b, n, d)).astype(np.float32),
-                            device=dev)
+        x, y = (torch.as_tensor(a, device=dev)
+                for a in _cost_arrays(rng, b, m, n, d))
         out = ops.cost_matrix_batched(x, y, metric)
         ref = cost_matrix_ref(x, y, metric)
         torch.cuda.synchronize()
@@ -355,6 +506,8 @@ def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         ok = bool((err <= atol + rtol * ref.abs()).all())
         ms = cuda_ms(torch, lambda: ops.cost_matrix_batched(x, y, metric),
                      reps=20)
+        prof_ms = profiler_ms(torch, lambda: ops.cost_matrix_batched(
+            x, y, metric), "cost_matrix_kernel")
         plain_ms = cuda_ms(torch, lambda: cost_matrix_ref(x, y, metric),
                            reps=3, warmup=1)
         p = {"euclidean": 2.0, "l1": 1.0}.get(metric)
@@ -365,10 +518,12 @@ def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflop / FP32_FLOP_PER_S
         row = {"name": "cost_matrix", "metric": metric,
                "shape": [b, m, n, d], "ok": ok, "rtol": rtol, "atol": atol,
-               "max_abs_err": float(err.max()),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": float(err.max()), "ms": ms,
+               "profiler_ms": prof_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["bound_share"] = row["bound_ms"] / ms
         log(f"[2] {json.dumps(row)}")
         rows.append(row)
         ok_all &= ok
@@ -586,7 +741,7 @@ def _count_scanned(ops, run):
 
 
 def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
-               c_int, k, plain_reps=3):
+               c_int, k, kernel_name, plain_reps=3):
     """One fused kernel against its plain version and the stepped core on
     the same state and k: equality, times and the bound. The work depends
     on the data, so the bound counts what this chunk needs, as the stepped
@@ -605,6 +760,7 @@ def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
                    - getattr(ref, f).cpu().long()).abs().max())
               for f in got._fields)
     ms = cuda_ms(torch, kernel, reps=10)
+    prof_ms = profiler_ms(torch, kernel, kernel_name)
     plain_ms = cuda_ms(torch, plain, reps=plain_reps, warmup=1)
     stepped_ms = cuda_ms(torch, stepped, reps=3, warmup=1)
     rounds = (got.rounds - state0.rounds).tolist()
@@ -615,12 +771,14 @@ def _fused_row(torch, ops, name, shape, kernel, plain, stepped, state0,
     row = {"name": name, "shape": list(shape), "k": k, "ok": ok,
            "differs_from_plain": diff_plain,
            "differs_from_stepped": diff_stepped, "max_abs_err": float(err),
-           "ms": ms, "plain_ms": plain_ms, "stepped_ms": stepped_ms,
+           "ms": ms, "profiler_ms": prof_ms, "plain_ms": plain_ms,
+           "stepped_ms": stepped_ms,
            "library_ms": None, "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bound_bytes": nbytes, "bound_ops": nops, "rows_read": rows_read,
            "phases": (got.phases - state0.phases).tolist(),
            "rounds": rounds, "ms_per_round": ms / max(max(rounds), 1)}
+    row["bound_share"] = row["bound_ms"] / ms
     return row
 
 
@@ -657,11 +815,26 @@ def fused_assignment_full_chunk(torch, ops, rng, dev):
     of the default policy's solve, where few rows are still free; the
     state is reached by k = 8 fused chunks, as ``solve(..., fused=True)``
     would reach it."""
+    start = SIZES["fused_assignment_full"][2]
+    c_int, thr, cap, mv, states = fig1_walk(torch, ops, rng, dev)
+    for s0 in states:
+        if int(s0.phases[0]) >= start:
+            break
+    return c_int, s0, thr, cap, mv
+
+
+def fig1_walk(torch, ops, rng, dev, k=None):
+    """Phase 3's Fig. 1 costs in units of eps, B = 1 (``rng`` is the
+    generator phase 3 draws its points from, see ``fig1_generator``), and
+    the states the fused route passes at its chunk boundaries (every
+    ``k`` phases, by default ``SIZES["fused_k"]``) from the initial state,
+    as an iterator that ends when the solve does. Returns ``(c_int,
+    threshold, phase_cap, m_valid, states)``."""
     from repro_torch.core.costs import build_cost_matrix
     from repro_torch.core.pushrelabel import (
         _max_phases, assignment_prologue, init_assignment_state)
 
-    n, eps, start = SIZES["fused_assignment_full"]
+    n, eps, _ = SIZES["fused_assignment_full"]
     i32 = torch.int32
     c = build_cost_matrix(_points(rng, n), _points(rng, n), "euclidean",
                           device=dev)[None]
@@ -671,20 +844,70 @@ def fused_assignment_full_chunk(torch, ops, rng, dev):
     thr = torch.full((1,), int(eps * n), dtype=i32, device=dev)
     cap = torch.full((1,), _max_phases(eps, n), dtype=i32, device=dev)
     mv = torch.full((1,), n, dtype=i32, device=dev)
-    s0 = init_assignment_state(1, n, n, dev)
-    while int(s0.phases[0]) < start:
-        s0 = ops.fused_run_assignment_phases(c_int, s0, thr, cap,
-                                             SIZES["fused_k"], m_valid=mv)
-    return c_int, s0, thr, cap, mv
+
+    def states():
+        s = init_assignment_state(1, n, n, dev)
+        while True:
+            yield s
+            nxt = ops.fused_run_assignment_phases(
+                c_int, s, thr, cap, k or SIZES["fused_k"], m_valid=mv)
+            if int(nxt.phases[0]) == int(s.phases[0]):
+                return
+            s = nxt
+    return c_int, thr, cap, mv, states()
 
 
-def fig1_generator(torch, ops, seed, dev):
+def phase_propose_rounds(torch, ops, fig1_rng, rng, dev, rows) -> bool:
+    """``slack_propose`` on the rounds the stepped route runs.
+
+    Late and mid: round 0 of a phase of phase 3's Fig. 1 solve (B = 1,
+    10 000^2; ``fig1_rng`` draws its points), with the operands that
+    ``greedy_maximal_matching`` hands the kernel in a phase's first
+    round: the free rows active, every column available, salt = phases *
+    7919. Late is the state at phase ``SIZES["fused_assignment_full"][2]``
+    (280: 169 free rows), mid the first phase with at most
+    ``SIZES["propose_rounds"]["mid_free"]`` free rows (the walk goes one
+    phase at a time: 803 rows are left at phase 8). Batch: B lanes of
+    random operands (``_propose_operands``, from ``rng``) with a few
+    percent of the rows active."""
+    late = SIZES["fused_assignment_full"][2]
+    cfg = SIZES["propose_rounds"]
+    c_int, _, _, _, states = fig1_walk(torch, ops, fig1_rng, dev, k=1)
+    picked = {}
+    for s in states:
+        if "mid" not in picked and int((s.match_ba < 0).sum()) <= \
+                cfg["mid_free"]:
+            picked["mid"] = s
+        if int(s.phases[0]) >= late:
+            break
+    picked["late"] = s              # or the last state, if the solve ended
+    picked.setdefault("mid", s)
+    ok = True
+    n = c_int.shape[2]
+    for label in ("late", "mid"):
+        s = picked[label]
+        kargs = (c_int, s.y_b, s.y_a,
+                 torch.ones((1, n), dtype=torch.bool, device=dev),
+                 (s.phases * 7919).to(torch.int32))
+        row = _propose_row(torch, ops, kargs, s.match_ba < 0, round=label,
+                           phase=int(s.phases[0]))
+        rows.append(row)
+        ok &= row["ok"]
+    del c_int, picked, states, kargs
+    torch.cuda.empty_cache()
+
+    b, m, n, frac = cfg["batch"]
+    kargs, active = _propose_operands(torch, rng, dev, b, m, n, frac)
+    row = _propose_row(torch, ops, kargs, active, round="batch")
+    rows.append(row)
+    return ok and row["ok"]
+
+
+def fig1_generator(seed):
     """The generator in the state phase 3 draws its Fig. 1 points from:
-    ``main``'s after phase 2's kernel checks, which this runs again (their
-    rows are dropped)."""
+    ``main``'s after phase 2's kernel checks (``skip_kernel_draws``)."""
     rng = np.random.default_rng(seed)
-    if not phase_kernels(torch, ops, rng, dev, [], {}):
-        raise RuntimeError("a kernel disagreed with its plain version")
+    skip_kernel_draws(rng)
     return rng
 
 
@@ -711,7 +934,7 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
         lambda: type(s0)(*fused_assignment_phases_ref(
             c_int, *s0, thr, cap, mv, k=k)),
         lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
-        s0, c_int, k)
+        s0, c_int, k, "fused_assignment_kernel")
     del c_int, s0
 
     c_int, s0, thr, cap, mr = fused_ot_chunk(torch, rng, dev)
@@ -729,7 +952,7 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
         lambda: type(s0)(*fused_assignment_phases_ref(
             c_int, *s0, thr, cap, mv, k=k)),
         lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
-        s0, c_int, k, plain_reps=1)
+        s0, c_int, k, "fused_assignment_kernel", plain_reps=1)
     row_f.update(start_phase=int(s0.phases[0]),
                  free_rows_before=int((s0.match_ba < 0).sum()))
     del c_int, s0
@@ -762,7 +985,7 @@ def _ot_row(torch, ops, c_int, s0, thr, cap, mr, k, plain_reps=3):
         lambda: type(s0)(*fused_ot_phases_ref(
             c_int, *s0, thr, cap, k=k, max_rounds=mr)),
         lambda: run_ot_phases(c_int, s0, thr, cap, k, mr),
-        s0, c_int, k, plain_reps=plain_reps)
+        s0, c_int, k, "fused_ot_kernel", plain_reps=plain_reps)
 
 
 def _ot_lanes(torch, rng, dev, b, n, eps):
@@ -985,6 +1208,8 @@ def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
                              and torch.equal(masked[active], got[active]))
             ok &= masked_ok
         ms = cuda_ms(torch, lambda: ops.sinkhorn_row_update(*kargs), reps=20)
+        prof_ms = profiler_ms(torch, lambda: ops.sinkhorn_row_update(*kargs),
+                              "sinkhorn_row_kernel")
         plain_ms = cuda_ms(torch, lambda: sinkhorn_row_ref(*kargs), reps=3,
                            warmup=1)
         library_ms = cuda_ms(torch, lambda: _row_update_torch(*kargs),
@@ -995,10 +1220,12 @@ def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         row = {"name": "sinkhorn_row_update", "shape": [b, m, n], "ok": ok,
                "rtol": 1e-5, "atol": 1e-5 * scale, "max_abs_err": err,
                "max_abs_f": scale, "active_b_ok": masked_ok,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "ms": ms, "profiler_ms": prof_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
                "library": "reg * (log_nu - torch.logsumexp((g - c) / reg))",
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["bound_share"] = row["bound_ms"] / ms
         log(f"[2] {json.dumps(row)}")
         rows.append(row)
         ok_all &= ok

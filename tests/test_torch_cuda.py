@@ -12,6 +12,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
 from repro_torch.kernels.slack_propose import slack_propose_ref
 
+from _propose_hash import umax_salt
+
 
 @pytest.fixture
 def dev():
@@ -58,6 +60,97 @@ def test_slack_propose_misaligned_rows_take_scalar_path(dev):
                                          active_b=active)
     rcol, rkey = slack_propose_ref(c1, y_b, y_a, avail, salt, active)
     assert torch.equal(col, rcol) and torch.equal(key, rkey)
+
+
+def _propose_live(seed, b, m, n, live, dev):
+    """``_propose_inputs`` with exactly ``live`` active rows per lane, at
+    random places, each with y_b >= 1 (a row with y_b = 0 has no
+    admissible column there), so about 2.5 % of their columns are
+    admissible."""
+    c, y_b, y_a, avail, salt, _ = _propose_inputs(seed, b, m, n, dev)
+    rng = np.random.default_rng(seed + 1)
+    active = np.zeros((b, m), bool)
+    for lane in range(b):
+        active[lane, rng.choice(m, live, replace=False)] = True
+    active = torch.as_tensor(active, device=dev)
+    y_b = torch.where(active, y_b.clamp(min=1), y_b)
+    return c, y_b, y_a, avail, salt, active
+
+
+def _assert_propose_equals_plain(c, y_b, y_a, avail, salt, active):
+    before = ops.launches["slack_propose"]
+    col, key = ops.slack_propose_batched(c, y_b, y_a, avail, salt,
+                                         active_b=active)
+    rcol, rkey = slack_propose_ref(c, y_b, y_a, avail, salt, active)
+    torch.cuda.synchronize()
+    assert ops.launches["slack_propose"] == before + 1
+    assert torch.equal(col, rcol) and torch.equal(key, rkey)
+    return col
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,live", [
+    (1, 10_000, 10_000, 1), (1, 10_000, 10_000, 17),
+    (1, 10_000, 10_000, 169), (16, 1024, 1024, 1), (16, 1024, 1024, 0)])
+def test_slack_propose_few_live_rows(dev, b, m, n, live):
+    """The late rounds the stepped route runs: a live row spread over up
+    to 32 warps, one live row per lane, none at all."""
+    args = _propose_live(live + n, b, m, n, live, dev)
+    col = _assert_propose_equals_plain(*args)
+    assert int((col >= 0).sum()) == b * live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,live,offset", [
+    (3000, 10_001, 1, 0), (3000, 10_001, 169, 0), (2000, 10_000, 17, 1),
+    (500, 1027, 9, 0)])
+def test_slack_propose_scalar_path_few_live_rows(dev, m, n, live, offset):
+    """n not a multiple of 4, or a view of c_int that starts off a 16-byte
+    boundary: the 4-byte loads, with rows cut into parts."""
+    c, y_b, y_a, avail, salt, active = _propose_live(n + live, 1, m, n,
+                                                     live, dev)
+    if offset:
+        flat = c.flatten()
+        c = torch.cat([flat, flat[:offset]])[offset:].view(1, m, n)
+        assert c.data_ptr() % 16 != 0
+    _assert_propose_equals_plain(c, y_b, y_a, avail, salt, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [1, 2, 169])
+def test_slack_propose_only_admissible_column_is_the_last(dev, live):
+    """Each live row's one admissible column is its last, in the last part
+    of a split row; half the live rows have none at all."""
+    m, n = 2000, 10_000
+    c, y_b, y_a, avail, salt, active = _propose_live(live, 1, m, n, live,
+                                                     dev)
+    c = (y_b[:, :, None] + y_a[:, None, :]).to(torch.int32)  # none
+    rows = torch.nonzero(active[0]).flatten()
+    c[0, rows[::2], n - 1] -= 1                              # but the last
+    avail[0, n - 1] = True
+    col = _assert_propose_equals_plain(c, y_b, y_a, avail, salt, active)
+    assert torch.equal(col[0, rows[::2]],
+                       torch.full_like(rows[::2], n - 1, dtype=torch.int32))
+    assert (col[0, rows[1::2]] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [2, 169])
+def test_slack_propose_key_umax_still_proposes(dev, live):
+    """A row whose only admissible column hashes to 0xFFFFFFFF proposes
+    (column 0, the first minimum of the masked keys), a row with no
+    admissible column does not: the merged admissible flag, not the
+    packed minimum, tells them apart."""
+    m, n = 2000, 10_000
+    i, j = 0, 7777
+    c, y_b, y_a, _, _, active = _propose_live(live, 1, m, n, live, dev)
+    c = (y_b[:, :, None] + y_a[:, None, :]).to(torch.int32)  # none
+    c[0, i, j] -= 1
+    active[0, i] = active[0, i + 1] = True
+    avail = torch.ones((1, n), dtype=torch.bool, device=dev)
+    salt = torch.tensor([umax_salt(i, j)], dtype=torch.int32, device=dev)
+    col = _assert_propose_equals_plain(c, y_b, y_a, avail, salt, active)
+    assert int(col[0, i]) == 0 and int(col[0, i + 1]) == -1
 
 
 @pytest.mark.cuda

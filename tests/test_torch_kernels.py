@@ -19,6 +19,8 @@ from repro_torch.core.costs import build_cost_matrix
 from repro_torch.kernels import ops
 from repro_torch.kernels.cost_matrix import tolerance
 
+from _propose_hash import umax_salt
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -70,6 +72,120 @@ def test_plain_wrappers_count_no_launch():
                                 (c, y_b, y_a, avail, salt)))
     ops.cost_matrix(torch.zeros(3, 2), torch.ones(4, 2), "l1")
     assert ops.launches == before
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _packed_columns(c, y_b, y_a, avail, salt):
+    """What csrc/slack_propose.cu's warps reduce: per (lane, row, column)
+    the packed value (key << 32) | col as uint64 (key 0xFFFFFFFF where the
+    column is not admissible), and the admissible mask."""
+    from repro_torch.kernels.slack_propose import UMAX, proposal_keys
+
+    b, m, n = c.shape
+    adm = ((torch.as_tensor(y_b)[:, :, None] + torch.as_tensor(y_a)[:, None]
+            == torch.as_tensor(c) + 1) & torch.as_tensor(avail)[:, None])
+    keys = torch.where(adm, proposal_keys(m, n, torch.as_tensor(salt)), UMAX)
+    packed = (keys.numpy().astype(np.uint64) << np.uint64(32)) | np.arange(
+        n, dtype=np.uint64)
+    return packed, adm.numpy()
+
+
+def _decode(best, any_adm):
+    col = np.where(any_adm, (best & np.uint64(_M32)).astype(np.int64), -1)
+    return col, (best >> np.uint64(32)).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,parts", [(9, 2), (64, 5), (1000, 32),
+                                     (1001, 7)])
+def test_packed_minimum_over_any_split_is_first_minimum(n, parts):
+    """The premise of slack_propose.cu's column parts: cut each row's
+    columns anywhere into parts, reduce each part to its packed minimum
+    and admissible flag, merge the parts in any order, and (col, key)
+    decoded from the result is the plain version's first minimum."""
+    from repro_torch.kernels.slack_propose import slack_propose_ref
+
+    rng = np.random.default_rng(n * 100 + parts)
+    c, y_b, y_a, avail, _, salt = _propose_inputs(n + parts, 4, 24, n)
+    rcol, rkey = slack_propose_ref(*(torch.as_tensor(a) for a in
+                                     (c, y_b, y_a, avail, salt)))
+    packed, adm = _packed_columns(c, y_b, y_a, avail, salt)
+    cuts = np.sort(rng.choice(np.arange(1, n), parts - 1, replace=False))
+    best = np.full(packed.shape[:2], np.uint64(2**64 - 1))
+    any_adm = np.zeros(packed.shape[:2], bool)
+    for p in rng.permutation(parts):
+        best = np.minimum(best, np.split(packed, cuts, axis=2)[p].min(2))
+        any_adm |= np.split(adm, cuts, axis=2)[p].any(2)
+    col, key = _decode(best, any_adm)
+    np.testing.assert_array_equal(col, rcol.numpy())
+    np.testing.assert_array_equal(key, rkey.numpy())
+    assert (rcol.numpy() == -1).any()    # rows with no admissible column
+
+
+@pytest.mark.parametrize("i,j", [(0, 0), (3, 17), (5, 63)])
+def test_any_flag_is_not_in_the_packed_minimum(i, j):
+    """Why slack_propose.cu merges the admissible flag beside the packed
+    minimum: a row whose only admissible column hashes to 0xFFFFFFFF and
+    a row with no admissible column have the same packed minimum, yet the
+    first proposes (column 0, the first minimum of the masked keys, as the
+    reference's argmin gives it) and the second does not."""
+    from repro.core.matching import _propose_dense
+    from repro_torch.kernels.slack_propose import proposal_keys
+
+    m, n = 8, 64
+    salt = umax_salt(i, j)
+    assert int(proposal_keys(m, n, torch.tensor(salt))[i, j]) == _M32
+    c = np.full((1, m, n), 5, np.int32)          # nothing admissible...
+    c[0, i, j] = 0                                # ...but (i, j)
+    y_b = np.ones((1, m), np.int32)
+    y_a = np.zeros((1, n), np.int32)
+    avail = np.ones((1, n), bool)
+    salt_b = np.array([salt], np.int32)
+    col, key = ops.slack_propose_batched(
+        *(torch.as_tensor(a) for a in (c, y_b, y_a, avail, salt_b)))
+    packed, adm = _packed_columns(c, y_b, y_a, avail, salt_b)
+    best = packed.min(2)[0]
+    other = (i + 1) % m
+    assert best[i] == best[other]
+    assert adm[0, i].any() and not adm[0, other].any()
+    assert (int(col[0, i]), int(key[0, i])) == (0, _M32)
+    assert (int(col[0, other]), int(key[0, other])) == (-1, _M32)
+    ref = np.asarray(_propose_dense(
+        jnp.asarray(c[0]), jnp.asarray(y_b[0]), jnp.asarray(y_a[0]),
+        jnp.ones(m, bool), jnp.asarray(avail[0]), jnp.asarray(salt_b[0])))
+    np.testing.assert_array_equal(col[0].numpy(), ref)
+
+
+def _live_rows_per_block(rows, grid, active):
+    """slack_propose.cu's split of a round, in its integers: passes of
+    16 384 rows, and the live row of global rank q goes to block q mod G.
+    Returns the live rows each block holds, per pass ((passes, G))."""
+    chunk = 16 * 1024
+    out, carry = [], 0
+    for base in range(0, rows, chunk):
+        live = int(active[base:base + chunk].sum())
+        out.append(np.bincount((carry + np.arange(live)) % grid,
+                               minlength=grid))
+        carry += live
+    return np.array(out)
+
+
+@pytest.mark.parametrize("rows,grid,live", [
+    (10_000, 132, 169), (10_000, 132, 9_500), (16_384, 132, 15_565),
+    (40_000, 132, 20_000), (100, 64, 30), (37, 37, 37)])
+def test_propose_split_fits_its_slots(rows, grid, live):
+    """The premise of slack_propose.cu's persistent grid: in every pass
+    the blocks hold live rows that differ by at most one, and none holds
+    more than the ``cap`` slots the launcher sizes its shared memory for
+    (ceil(min(rows, 16 384) / G))."""
+    rng = np.random.default_rng(rows + live)
+    active = np.zeros(rows, bool)
+    active[rng.choice(rows, live, replace=False)] = True
+    held = _live_rows_per_block(rows, grid, active)
+    assert held.sum() == live
+    assert (held.max(1) - held.min(1) <= 1).all()
+    assert held.max() <= -(-min(rows, 16 * 1024) // grid)
 
 
 def _cost_tol(metric, d):

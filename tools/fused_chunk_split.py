@@ -12,8 +12,8 @@ The chunks are chip_smoke's own, built by its helpers from the same seed:
 - ``--kernel assignment`` (the default; ``fused_assignment_chunk``,
   ``fused_assignment_full_chunk``): B = 16 lanes of 1024 x 1024 three
   stepped phases in, and B = 1 on phase 3's Fig. 1 costs (n = 10 000,
-  eps = 0.01) from phase 280. To draw phase 3's points the tool runs
-  chip_smoke's phase-2 kernel checks first, as chip_smoke does.
+  eps = 0.01) from phase 280. To draw phase 3's points the tool replays
+  chip_smoke's phase-2 draws first (``fig1_generator``).
 - ``--kernel ot`` (``fused_ot_chunk``, ``fused_ot_full_chunk``): B = 8
   lanes of 512 x 512 two stepped phases in (the assignment chunk is
   drawn first from the same generator, as in chip_smoke, and dropped),
@@ -288,7 +288,7 @@ def chunks(torch, cs, ops, kernel, seed, dev):
     for each of chip_smoke's chunks of ``kernel``."""
     k = cs.SIZES["fused_k"]
     if kernel == "assignment":
-        fig1_rng = cs.fig1_generator(torch, ops, seed, dev)
+        fig1_rng = cs.fig1_generator(seed)
 
         def want(c_int, s0, thr, cap, mv):
             return ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,

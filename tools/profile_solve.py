@@ -15,7 +15,11 @@ reports for each: wall time (with the
 profiler on, which slows the host side), the summed device time of every
 kernel, their share of that wall time (the card's busy share; the rest is
 idle), the top kernels by device time, the host syncs and the launches of
-the port's own kernels. Needs one CUDA device.
+the port's own kernels. Where ``slack_propose`` runs (the stepped route),
+it also gives that kernel's launches, the sum of their live rows (counted
+in the warm-up solve, one host read per launch), its summed device time
+and the sum of each launch's bound (``chip_smoke.propose_bound``). Needs
+one CUDA device.
 """
 from __future__ import annotations
 
@@ -28,19 +32,42 @@ from pathlib import Path
 import numpy as np
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _count_propose(ops, run):
+    """Run ``run()`` with every ``slack_propose`` launch counted: launches,
+    the sum of their live rows (a host read per launch) and the sum of
+    their bounds (``chip_smoke.propose_bound``). Returns (counts, run's
+    result)."""
+    from chip_smoke import propose_bound
+
+    counts = {"launches": 0, "active_rows": 0, "bound_ms": 0.0}
+    orig = ops.slack_propose_batched
+
+    def counting(c_int, *a, active_b=None):
+        b, m, n = c_int.shape
+        live = b * m if active_b is None else int(active_b.sum())
+        counts["launches"] += 1
+        counts["active_rows"] += live
+        counts["bound_ms"] += propose_bound(b, m, n, live)[0]
+        return orig(c_int, *a, active_b=active_b)
+
+    ops.slack_propose_batched = counting
+    try:
+        out = run()
+    finally:
+        ops.slack_propose_batched = orig
+    return counts, out
 
 
 def profile_case(torch, name, run):
+    from chip_smoke import device_us
     from repro_torch.core import device as rdev
     from repro_torch.kernels import ops
 
-    run()                                   # warm-up (kernel build, caches)
+    # warm-up (kernel build, caches), with slack_propose's launches counted
+    propose, _ = _count_propose(ops, run)
     ops.reset_launches()
     rdev.reset_sync_counts()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -54,13 +81,22 @@ def profile_case(torch, name, run):
     # kernels only: an aten op also reports the device time of the
     # kernels it launched, which would count them twice
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+    rows = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
             if e.device_type == cuda]
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
     busy_s = sum(r[2] for r in rows) / 1e6
+    if propose["launches"]:
+        # the profiled run repeats the counted one launch for launch
+        propose["same_launches"] = (propose["launches"]
+                                    == ops.launches["slack_propose"])
+        propose["device_ms"] = sum(
+            us for k, _, us in rows if "slack_propose_kernel" in k) / 1e3
+        propose["mean_active_rows"] = (propose["active_rows"]
+                                       / propose["launches"])
     out = {"case": name, **info, "wall_s": wall, "device_busy_s": busy_s,
            "busy_share": busy_s / wall if wall > 0 else None,
            "syncs": dict(rdev.sync_counts), "launches": dict(ops.launches),
+           **({"slack_propose": propose} if propose["launches"] else {}),
            "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
                    for k, c, us in rows[:12]]}
     print(json.dumps(out), flush=True)
@@ -77,12 +113,12 @@ def main() -> int:
                          "(stepped and fused) and hybrid solvers")
     ap.add_argument("--out", default="build/profile.json")
     args = ap.parse_args()
-    root = Path(__file__).resolve().parents[1]
     import torch
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
     from repro_torch.core.costs import build_cost_matrix
 
@@ -131,7 +167,7 @@ def main() -> int:
                 + (" fused" if fused else ""),
                 lambda solver=solver, fused=fused: ot(fused, solver)))
     res = {"card": smi, "torch": torch.__version__, "cases": cases}
-    out = root / args.out
+    out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))
     return 0
