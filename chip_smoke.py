@@ -6,11 +6,16 @@
 Phases, in order; any failure exits non-zero:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-     versions; build the CUDA kernels from ``src/repro_torch/csrc``;
+     versions; build the CUDA kernels from ``src/repro_torch/csrc`` and
+     print each entry function's registers, shared memory and spills
+     (``ptxas -v``);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: ``slack_propose`` equal bit for bit,
-     ``cost_matrix`` within the stated tolerance; CUDA-event times of
-     kernel, plain version and library call beside the bound. The fused
+     ``cost_matrix`` within the stated tolerance (each row with
+     ``out_sha256``, the digest of the output, as the row kernel's rows
+     too); CUDA-event times of kernel, plain version and library call
+     beside the bound (``cost_bound``: an l1 term is two FP32
+     instructions, an FFMA two flops). The fused
      kernels (``fused_assignment_phases`` at B = 16, 1024 x 1024;
      ``fused_ot_phases`` at B = 8, 512 x 512) run one k = 8 chunk from a
      state a few stepped phases in, every integer field equal to the
@@ -69,7 +74,9 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -265,6 +272,39 @@ def smi_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads")
+
+
+def ptxas_summary(text: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {entry function: {"registers",
+    "smem" (static bytes), "spill_stores", "spill_loads"}}."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        if (e := _PTXAS_ENTRY.search(line)):
+            entry = e.group(1)
+            out[entry] = {"registers": None, "smem": 0, "spill_stores": 0,
+                          "spill_loads": 0}
+        elif entry is None:
+            continue
+        elif (sp := _PTXAS_SPILL.search(line)):
+            out[entry].update(spill_stores=int(sp.group(1)),
+                              spill_loads=int(sp.group(2)))
+        elif (u := _PTXAS_USED.search(line)):
+            out[entry].update(registers=int(u.group(1)),
+                              smem=int(u.group(2) or 0))
+    return out
+
+
+def out_sha256(t) -> str:
+    """SHA-256 of a tensor's bytes (copied to the host): two kernels'
+    outputs are bit-equal iff their digests are."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -297,10 +337,10 @@ def main() -> int:
     build_s = ops.build_kernels()
     log(f"[1] built {sorted(ops.build_log) or 'no'} kernels in "
         f"{build_s:.1f} s")
-    for name, text in ops.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[1]   {name}: {line.strip()}")
+    record["ptxas"] = {name: ptxas_summary(text)
+                       for name, text in sorted(ops.build_log.items())}
+    for name, entries in record["ptxas"].items():
+        log(f"[1] ptxas {name}: {json.dumps(entries)}")
     record["card"] = smi
     record["build_s"] = build_s
 
@@ -481,8 +521,6 @@ def skip_kernel_draws(rng):
 
 
 def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
-    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
-
     ok_all = True
     # slack_propose with 95 % of the rows active
     for b, m, n in SIZES["slack_propose"]:
@@ -493,8 +531,37 @@ def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         kernel_rows.setdefault("slack_propose", row)
         del kargs, active
         torch.cuda.empty_cache()
+    # then cost_matrix, from the same generator
+    ok_cost = phase_cost_rows(torch, ops, rng, dev, rows, kernel_rows)
+    return ok_all and ok_cost
 
-    # cost_matrix: every metric at the 2-D shapes, l1 on 784-d images
+
+def cost_bound(metric: str, b: int, m: int, n: int, d: int):
+    """``(bound_ms, bound_by)`` of one ``cost_matrix`` launch: bytes, x and
+    y read once and the (B, m, n) output written once, over the HBM rate;
+    operations, the B m n d terms. A sqeuclidean or euclidean term is one
+    FFMA, 2 flops at the fp32 rate. An l1 term |x - y| is two FP32
+    instructions (FADD, then FADD with |.|) and no multiply, so it is
+    counted as 2 instructions at the instruction rate, half the flop rate
+    (which counts an FFMA as 2)."""
+    nbytes = 4 * b * (m * d + n * d + m * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if metric == "l1":
+        t_ops = 2 * b * m * n * d / (FP32_FLOP_PER_S / 2)
+    else:
+        t_ops = 2 * b * m * n * d / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_cost_rows(torch, ops, rng, dev, rows, kernel_rows) -> bool:
+    """``cost_matrix`` at every metric on the 2-D shapes and l1 on 784-d
+    images, against the plain version within ``tolerance(metric, d)``;
+    each row carries ``out_sha256``, the digest of the kernel's output, so
+    two versions' rows show whether their costs are bit-equal."""
+    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
+
+    ok_all = True
     for metric, b, m, n, d in SIZES["cost_matrix"]:
         x, y = (torch.as_tensor(a, device=dev)
                 for a in _cost_arrays(rng, b, m, n, d))
@@ -504,26 +571,23 @@ def phase_kernels(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         rtol, atol = tolerance(metric, d)
         err = (out - ref).abs()
         ok = bool((err <= atol + rtol * ref.abs()).all())
+        digest = out_sha256(out)
         ms = cuda_ms(torch, lambda: ops.cost_matrix_batched(x, y, metric),
                      reps=20)
         prof_ms = profiler_ms(torch, lambda: ops.cost_matrix_batched(
-            x, y, metric), "cost_matrix_kernel")
+            x, y, metric), "cost_")
         plain_ms = cuda_ms(torch, lambda: cost_matrix_ref(x, y, metric),
                            reps=3, warmup=1)
         p = {"euclidean": 2.0, "l1": 1.0}.get(metric)
         library_ms = None if p is None else cuda_ms(
             torch, lambda: torch.cdist(x, y, p=p), reps=5, warmup=1)
-        nbytes = 4 * b * (m * d + n * d + m * n)
-        nflop = 2 * b * m * n * d
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflop / FP32_FLOP_PER_S
+        bound_ms, bound_by = cost_bound(metric, b, m, n, d)
         row = {"name": "cost_matrix", "metric": metric,
                "shape": [b, m, n, d], "ok": ok, "rtol": rtol, "atol": atol,
-               "max_abs_err": float(err.max()), "ms": ms,
-               "profiler_ms": prof_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        row["bound_share"] = row["bound_ms"] / ms
+               "max_abs_err": float(err.max()), "out_sha256": digest,
+               "ms": ms, "profiler_ms": prof_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_share": bound_ms / ms}
         log(f"[2] {json.dumps(row)}")
         rows.append(row)
         ok_all &= ok
@@ -1150,6 +1214,24 @@ def phase_fused(torch, ops, rdev, dev, record, ctx, launches) -> bool:
     return ok
 
 
+def sinkhorn_row_arrays(rng, b, m, n):
+    """The row kernel's operands ``(c, g, log_nu, reg)`` as numpy arrays,
+    as ``phase_sinkhorn_kernel`` draws them (see there)."""
+    c = rng.uniform(size=(b, m, n)).astype(np.float32)
+    nu = rng.dirichlet(np.ones(m), b).astype(np.float32)
+    g = rng.normal(0.0, 0.2, (b, n)).astype(np.float32)
+    if b > 1:
+        for i in range(b):
+            mi, ni = m - 37 * i, n - 53 * i
+            c[i, mi:], c[i, :, ni:], nu[i, mi:] = 0.0, 0.0, 0.0
+        nu[-1] = 0.0
+    nu_hat = nu / np.maximum(nu.sum(1, keepdims=True), 1e-30)
+    log_nu = np.log(np.maximum(nu_hat, 1e-30)).astype(np.float32)
+    eps = np.resize([0.05] if b == 1 else [0.3, 0.1, 0.05, 0.03], b)
+    reg = (eps / (4 * np.log(max(m, n)))).astype(np.float32)
+    return c, g, log_nu, reg
+
+
 def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
     """``sinkhorn_row_update`` against its plain version at the shapes of
     the portfolio's solves: the OT cell of phase 4 (B = 1, 4096 x 4096)
@@ -1175,20 +1257,8 @@ def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
 
     ok_all = True
     for b, m, n in SIZES["sinkhorn_row"]:
-        c = rng.uniform(size=(b, m, n)).astype(np.float32)
-        nu = rng.dirichlet(np.ones(m), b).astype(np.float32)
-        g = rng.normal(0.0, 0.2, (b, n)).astype(np.float32)
-        if b > 1:
-            for i in range(b):
-                mi, ni = m - 37 * i, n - 53 * i
-                c[i, mi:], c[i, :, ni:], nu[i, mi:] = 0.0, 0.0, 0.0
-            nu[-1] = 0.0
-        nu_hat = nu / np.maximum(nu.sum(1, keepdims=True), 1e-30)
-        log_nu = np.log(np.maximum(nu_hat, 1e-30)).astype(np.float32)
-        eps = np.resize([0.05] if b == 1 else [0.3, 0.1, 0.05, 0.03], b)
-        reg = (eps / (4 * np.log(max(m, n)))).astype(np.float32)
         c, g, log_nu, reg = (torch.as_tensor(a, device=dev)
-                             for a in (c, g, log_nu, reg))
+                             for a in sinkhorn_row_arrays(rng, b, m, n))
         kargs = (c, g, log_nu, reg)
         got = ops.sinkhorn_row_update(*kargs)
         ref = sinkhorn_row_ref(*kargs)
@@ -1220,6 +1290,7 @@ def phase_sinkhorn_kernel(torch, ops, rng, dev, rows, kernel_rows) -> bool:
         row = {"name": "sinkhorn_row_update", "shape": [b, m, n], "ok": ok,
                "rtol": 1e-5, "atol": 1e-5 * scale, "max_abs_err": err,
                "max_abs_f": scale, "active_b_ok": masked_ok,
+               "out_sha256": out_sha256(got),
                "ms": ms, "profiler_ms": prof_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "reg * (log_nu - torch.logsumexp((g - c) / reg))",

@@ -43,7 +43,7 @@ _ENTRY = {
     "slack_propose": ("slack_propose.cu", "slack_propose_launch",
                       [_P] * 8 + [_I] * 4 + [_P]),
     "cost_matrix": ("cost_matrix.cu", "cost_matrix_launch",
-                    [_P] * 3 + [_I] * 5 + [_P]),
+                    [_P] * 3 + [_I] * 6 + [_P]),
     "fused_assignment_phases": ("fused_assignment.cu",
                                 "fused_assignment_launch",
                                 [_P] * 19 + [_I] * 5 + [_P]),
@@ -238,7 +238,12 @@ def slack_propose(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
 
 
 def cost_matrix_batched(x, y, metric: str = "sqeuclidean"):
-    """(B, m, d) x (B, n, d) float32 -> (B, m, n) float32 in one launch."""
+    """(B, m, d) x (B, n, d) float32 -> (B, m, n) float32 in one launch.
+
+    The kernel picks its instance from d: points (d <= 16, registers and
+    streaming stores) or images (d > 16, shared-memory tiles filled by
+    16-byte copies when d % 4 == 0 and x, y are 16-byte aligned, else by
+    4-byte ones)."""
     if metric not in _METRIC_ID:
         raise ValueError(f"unknown metric {metric!r}; expected one of "
                          f"{tuple(_METRIC_ID)}")
@@ -253,9 +258,10 @@ def cost_matrix_batched(x, y, metric: str = "sqeuclidean"):
     _check("x", x, torch.float32, (b, m, d), dev)
     _check("y", y, torch.float32, (b, n, d), dev)
     out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
+    aligned = int(d % 4 == 0 and x.data_ptr() % 16 == 0
+                  and y.data_ptr() % 16 == 0)
     _launch("cost_matrix", x.data_ptr(), y.data_ptr(), out.data_ptr(), b, m,
-            n, d, _METRIC_ID[metric],
-            _stream(dev))
+            n, d, _METRIC_ID[metric], aligned, _stream(dev))
     return out
 
 

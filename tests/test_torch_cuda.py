@@ -545,6 +545,124 @@ def test_sinkhorn_row_wrapper_refuses_bad_operands(dev):
                                                     device=dev))
 
 
+# (B, m, n): the route's row lengths, long rows (8192, 12 000), the
+# 4-byte path for each n % 4, B m not a multiple of a block's rows, blocks
+# whose rows cross lanes, fewer rows than SMs
+SINKHORN_ROW_CASES = {
+    "n1000_b8": (8, 1024, 1000),
+    "n4096": (1, 600, 4096),
+    "n8192_two_segments": (2, 40, 8192),
+    "n12000_g_in_stages": (2, 40, 12_000),
+    "n_mod4_1": (3, 77, 1001),
+    "n_mod4_2": (3, 77, 1002),
+    "n_mod4_3": (3, 77, 1003),
+    "ragged_grid": (3, 1000, 64),
+    "lanes_inside_a_block": (600, 3, 1000),
+    "fewer_rows_than_sms": (1, 5, 4096),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SINKHORN_ROW_CASES))
+def test_sinkhorn_row_kernel_design_cases(dev, case):
+    """Each case against the plain version (per-lane reg, ragged valid
+    blocks, a zero-mass lane); then with ``active_b`` marking off every
+    third lane, several inside one block where m is small: those rows
+    bit-equal to ``f``, the others bit-equal to the unmasked run."""
+    from repro_torch.kernels.sinkhorn_step import sinkhorn_row_ref
+
+    b, m, n = SINKHORN_ROW_CASES[case]
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, b, m, n, b + m + n)
+    before = ops.launches["sinkhorn_row_update"]
+    got = ops.sinkhorn_row_update(c, g, log_nu, reg)
+    assert ops.launches["sinkhorn_row_update"] == before + 1
+    ref = sinkhorn_row_ref(c, g, log_nu, reg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_rows_close(got, ref)
+    active = torch.arange(b, device=dev) % 3 != 1
+    f_old = torch.randn((b, m), device=dev)
+    masked = ops.sinkhorn_row_update(c, g, log_nu, reg, active_b=active,
+                                     f=f_old)
+    torch.cuda.synchronize()
+    assert torch.equal(masked[~active], f_old[~active])
+    assert torch.equal(masked[active], got[active])
+
+
+@pytest.mark.cuda
+def test_sinkhorn_row_no_lane_active_reads_nothing(dev):
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, 4, 300, 1000, 4)
+    f_old = torch.randn((4, 300), device=dev)
+    out = ops.sinkhorn_row_update(c, g, log_nu, reg,
+                                  active_b=torch.zeros(4, dtype=torch.bool,
+                                                       device=dev),
+                                  f=f_old)
+    torch.cuda.synchronize()
+    assert torch.equal(out, f_old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["c", "g"])
+def test_sinkhorn_row_misaligned_operand_takes_scalar_path(dev, which):
+    """n % 4 == 0 but c (or g) starts off a 16-byte boundary: the 16-byte
+    loads cannot take it, so the wrapper picks the 4-byte path."""
+    from repro_torch.kernels.sinkhorn_step import sinkhorn_row_ref
+
+    c, g, log_nu, reg = _sinkhorn_row_inputs(dev, 3, 50, 1000, 11)
+    if which == "c":
+        flat = c.flatten()
+        c = torch.cat([flat, flat[:1]])[1:].view(3, 50, 1000)
+        assert c.data_ptr() % 16 != 0
+    else:
+        flat = g.flatten()
+        g = torch.cat([flat, flat[:1]])[1:].view(3, 1000)
+        assert g.data_ptr() % 16 != 0
+    _assert_rows_close(ops.sinkhorn_row_update(c, g, log_nu, reg),
+                       sinkhorn_row_ref(c, g, log_nu, reg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n", [(1, 131, 257), (16, 70, 130),
+                                   (1, 200, 1027)])
+@pytest.mark.parametrize("d", [1, 2, 3, 16, 17, 784, 785])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "l1"])
+def test_cost_matrix_instances_vs_plain(dev, metric, d, b, m, n):
+    """Both instances (points d <= 16, images d > 16; 16-byte copies at
+    d = 784, 4-byte at 17 and 785) on m, n off the 128 tile and
+    n % 4 in {1, 2, 3} (scalar stores), B = 1 and B = 16, within the
+    metric's tolerance."""
+    rng = np.random.default_rng(d * 1000 + m)
+    x = torch.as_tensor(rng.uniform(size=(b, m, d)).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(size=(b, n, d)).astype(np.float32),
+                        device=dev)
+    before = ops.launches["cost_matrix"]
+    got = ops.cost_matrix_batched(x, y, metric)
+    assert ops.launches["cost_matrix"] == before + 1
+    ref = cost_matrix_ref(x, y, metric)
+    rtol, atol = tolerance(metric, d)
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "l1"])
+@pytest.mark.parametrize("d", [2, 784])
+def test_cost_matrix_misaligned_view(dev, metric, d):
+    """x starting off a 16-byte boundary: the images instance copies in
+    4-byte pieces; the points instance reads it as it is."""
+    rng = np.random.default_rng(d)
+    flat = torch.as_tensor(rng.uniform(size=300 * d + 1).astype(np.float32),
+                           device=dev)
+    x = flat[1:].view(1, 300, d)
+    assert x.data_ptr() % 16 != 0
+    y = torch.as_tensor(rng.uniform(size=(1, 260, d)).astype(np.float32),
+                        device=dev)
+    rtol, atol = tolerance(metric, d)
+    torch.testing.assert_close(ops.cost_matrix_batched(x, y, metric),
+                               cost_matrix_ref(x, y, metric), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 def test_sinkhorn_solve_on_card_equals_cpu(dev, fused):

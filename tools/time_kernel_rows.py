@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one kernel on chip_smoke's phase-2 rows, for A/B runs.
 
-    python3 tools/time_kernel_rows.py [--kernel slack_propose]
+    python3 tools/time_kernel_rows.py [--kernel slack_propose|cost_matrix|
+                                               sinkhorn_row_update]
                                       [--seed 0] [--label NAME] [--out FILE]
 
 The rows are chip_smoke's own, built by its helpers from the same seed:
@@ -15,8 +16,14 @@ The rows are chip_smoke's own, built by its helpers from the same seed:
   version bit for bit, the kernel's device time cold and warm
   (``chip_smoke.cuda_ms``, median of 20), under the profiler, the plain
   version's time and the bound.
+- ``--kernel cost_matrix``: ``phase_cost_rows``' rows (every metric at
+  B = 1, 10 000^2 and B = 16, 1024^2 with d = 2; l1 at 2048^2 with
+  d = 784), from the draws ``phase_kernels`` makes after its
+  ``slack_propose`` rows, each with its tolerance, bound and
+  ``out_sha256`` (equal digests: bit-equal costs).
 - ``--kernel sinkhorn_row_update``: ``phase_sinkhorn_kernel``'s rows
-  (B = 1, 4096^2 and B = 8, 1024 x 1000) with their tolerance.
+  (B = 1, 4096^2 and B = 8, 1024 x 1000) with their tolerance and
+  ``out_sha256``.
 
 Each row is printed as chip_smoke prints it (``[2] {...}``). The tool
 imports ``repro_torch`` and ``chip_smoke`` from the tree it sits in, so
@@ -38,7 +45,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="slack_propose",
-                    choices=("slack_propose", "sinkhorn_row_update"))
+                    choices=("slack_propose", "cost_matrix",
+                             "sinkhorn_row_update"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
@@ -54,13 +62,19 @@ def main() -> int:
 
     dev = torch.device("cuda")
     ops.build_kernels()
-    for line in ops.build_log.get(args.kernel, "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] {args.kernel}: {line.strip()}", flush=True)
+    if args.kernel in ops.build_log:  # built by this process
+        print(f"[1] ptxas {args.kernel}: "
+              f"{json.dumps(cs.ptxas_summary(ops.build_log[args.kernel]))}",
+              flush=True)
     rows = []
     if args.kernel == "sinkhorn_row_update":
         ok = cs.phase_sinkhorn_kernel(
             torch, ops, np.random.default_rng([args.seed, 3]), dev, rows, {})
+    elif args.kernel == "cost_matrix":
+        rng = np.random.default_rng(args.seed)
+        for b, m, n in cs.SIZES["slack_propose"]:
+            cs._propose_arrays(rng, b, m, n, 0.95)
+        ok = cs.phase_cost_rows(torch, ops, rng, dev, rows, {})
     else:
         rng = np.random.default_rng(args.seed)
         for b, m, n in cs.SIZES["slack_propose"]:
