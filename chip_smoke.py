@@ -59,13 +59,35 @@ Phases, in order; any failure exits non-zero:
      optimum; then card against CPU on phase 5's ragged batch (Sinkhorn
      floats within a stated tolerance; the hybrid finish from the same
      warm duals with equal integer state);
-  8. one JSON line with every kernel's numbers;
-  9. last line: ``{"ok": true, "device": {...}}``.
+  8. the serving path: (a) ``AsyncOTScheduler`` with 64 point-cloud
+     requests (d = 2, euclidean, m and n from 256-2048, every other one
+     OT with Dirichlet(1) masses, eps from {0.05, 0.1}, ``linger_ms=5``,
+     ``validate=True``), one of them with a NaN point, which must come
+     back ``RequestRejected`` while the rest of its bucket solves, then
+     one request with an expired ``deadline``, which must come back
+     ``degraded`` with a valid certificate; (b) ``OTService.run_batch``
+     with 8 assignment requests of n = 1024-2048 784-pixel images each
+     (l1, eps 0.1: Fig. 2's shape, the cost kernel's images instance);
+     every healthy request at ladder level 0, not degraded, the
+     ``cost_matrix`` and ``slack_propose`` counts moved; p50/p99 latency,
+     instances/s; (c) every bucket's costs equal to the plain version
+     on the card within ``tolerance(metric, d)`` (the serve shapes: B x
+     2048^2 at d = 2, 8 x 2048^2 at d = 784), its integer state equal to
+     a direct ``solve()`` of the same padded costs on the card, and lane
+     (k mod B) of bucket k on the CPU; (d) (a)'s requests again under a
+     ``FaultInjector`` transient, retried on the card, every request at
+     ladder level 0 and every integer state equal to (a)'s; the memory
+     peak ``torch.cuda.max_memory_allocated()`` of (a) + (b), whose
+     recordings for (c) hold every bucket on the card, and of (d), which
+     records nothing (the service's own peak);
+  9. one JSON line with every kernel's numbers;
+ 10. last line: ``{"ok": true, "device": {...}}``.
 
-Phases 3-4 (the stepped route), each part of phase 6 (the fused route)
-and each solve of phase 7 are driven with the launch counts set to 0 just
-before and read just after; the kernels line gives each kernel's
-launches on its route.
+Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
+each solve of phase 7 and phase 8's (a) and (b) together (the serve
+route) are driven with the launch counts set to 0 just before and read
+just after; the kernels line gives each kernel's launches on its route,
+and on the serve route as ``serve_launches``.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -74,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import hashlib
 import json
 import re
@@ -118,6 +141,16 @@ SIZES = {
     "propose_rounds": {"mid_free": 4000, "batch": (16, 1024, 1024, 0.05)},
     # sinkhorn_row_update, phase 2: (B, m, n)
     "sinkhorn_row": [(1, 4096, 4096), (8, 1024, 1000)],
+    # phase 8, serving: (a) scheduler requests (m, n drawn from sizes,
+    # eps from eps, request nan_at poisoned), the expired-deadline
+    # request (n, eps: far more phases than the first chunk's 8, so the
+    # cut always leaves it degraded); (b) image_reqs assignment requests of n (drawn
+    # from images) 784-pixel images each, l1, image_eps
+    "serve": {"requests": 64, "sizes": (256, 2048), "eps": (0.05, 0.1),
+              "nan_at": 11, "linger_ms": 5.0,
+              "want": ("cost", "duals", "state"),
+              "deadline": (2048, 0.01),
+              "images": (1024, 2048), "image_reqs": 8, "image_eps": 0.1},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -366,7 +399,7 @@ def main() -> int:
     log(f"[2] done at {time.monotonic() - t_start:.0f} s")
 
     # -- 3-5: the stepped route, counted --------------------------------
-    ctx = {}
+    ctx = {"seed": args.seed}
     launches = {}
     ops.reset_launches()
     rdev.reset_sync_counts()
@@ -407,7 +440,12 @@ def main() -> int:
         return fail("the solver portfolio, card against CPU")
     log(f"[7] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 8. kernels line ------------------------------------------------
+    # -- 8. the serving path, counted -------------------------------------
+    if not phase_serving(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the serving path")
+    log(f"[8] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 9. kernels line ------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -418,6 +456,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ok": row["ok"], "shape": row["shape"],
+            "serve_launches": launches["serve"][name],
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
                else {})})
     record["kernels"] = kernels
@@ -427,7 +466,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[8] record written to {args.out}")
+    log(f"[9] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1489,6 +1528,365 @@ def phase_portfolio_card_vs_cpu(torch, dev, record, ctx) -> bool:
     record["phases"].setdefault("portfolio_card_vs_cpu", []).append(res)
     return ok and not any(diffs)
 
+
+def _images(rng, n):
+    """``n`` L1-normalized 784-pixel images (28 x 28, Fig. 2's shape):
+    sparse non-negative intensities, most pixels dark."""
+    x = rng.uniform(size=(n, 784)).astype(np.float32) ** 4
+    x[rng.uniform(size=(n, 784)) < 0.8] = 0.0
+    x[:, 0] += 1e-3                      # no all-dark image
+    return x / x.sum(axis=1, keepdims=True)
+
+
+def serving_requests(rng):
+    """Phase 8 (a)'s requests: ``SIZES["serve"]["requests"]`` point
+    clouds (d = 2, uniform in the unit square), m and n drawn from
+    256-2048, every other one OT with Dirichlet(1) masses, eps from
+    {0.05, 0.1}; request ``nan_at`` is a copy of the shapes of the one
+    before it with a NaN point, so the two share a bucket."""
+    cfg = SIZES["serve"]
+    lo, hi = cfg["sizes"]
+    out = []
+    for i in range(cfg["requests"]):
+        m, n = (int(v) for v in rng.integers(lo, hi + 1, size=2))
+        if i == cfg["nan_at"]:
+            m, n = out[-1][0].shape[0], out[-1][1].shape[0]
+        x, y = _points(rng, m), _points(rng, n)
+        nu = mu = None
+        if i % 2:
+            nu = rng.dirichlet(np.ones(m)).astype(np.float32)
+            mu = rng.dirichlet(np.ones(n)).astype(np.float32)
+        if i == cfg["nan_at"]:
+            x[0, 0] = np.nan
+        out.append((x, y, nu, mu, float(rng.choice(cfg["eps"]))))
+    return out
+
+
+class _RecordSolves:
+    """Record every bucket ``core.api.solve`` call the services make
+    (they import it at call time): ``(spec, inputs, eps, sizes, device,
+    result)``, so each bucket can be solved again directly; and every
+    ``ops.cost_matrix_batched`` launch of their collate: ``(x, y, metric,
+    out)``, the padded points and the kernel's costs. Both hold their
+    tensors on the card."""
+
+    def __init__(self):
+        self.calls, self.costs = [], []
+
+    def __enter__(self):
+        from repro_torch.core import api
+        from repro_torch.kernels import ops
+
+        self._api, self._solve = api, api.solve
+        self._ops, self._cost = ops, ops.cost_matrix_batched
+
+        def solve(spec, inputs, eps, policy=None, **kw):
+            out = self._solve(spec, inputs, eps, policy, **kw)
+            self.calls.append((spec, dict(inputs), eps, kw.get("sizes"),
+                               kw.get("device"), out))
+            return out
+
+        def cost(x, y, metric="sqeuclidean"):
+            out = self._cost(x, y, metric)
+            self.costs.append((x, y, metric, out))
+            return out
+
+        api.solve, ops.cost_matrix_batched = solve, cost
+        return self
+
+    def __exit__(self, *exc):
+        self._api.solve = self._solve
+        self._ops.cost_matrix_batched = self._cost
+        return False
+
+
+def _bucket_costs_equal(torch, costs) -> tuple:
+    """Each recorded collate launch of ``cost_matrix`` against the plain
+    version on the same padded points, on the card, within
+    ``tolerance(metric, d)`` (phase 2's); a NaN point must give NaN
+    exactly where the plain version does. Returns (rows, all ok)."""
+    from repro_torch.kernels.cost_matrix import cost_matrix_ref, tolerance
+
+    rows, ok = [], True
+    for x, y, metric, out in costs:
+        ref = cost_matrix_ref(x, y, metric)
+        rtol, atol = tolerance(metric, int(x.shape[-1]))
+        nan_same = torch.equal(out.isnan(), ref.isnan())
+        fin = ~ref.isnan()
+        err = (out[fin] - ref[fin]).abs()
+        good = bool(nan_same and (err <= atol + rtol * ref[fin].abs()).all())
+        rows.append({"metric": metric, "shape": list(x.shape[:2])
+                     + [int(y.shape[1]), int(x.shape[2])], "ok": good,
+                     "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                     "rtol": rtol, "atol": atol})
+        ok &= good
+        del ref, err, fin
+    return rows, ok
+
+
+def _bucket_states_equal(torch, dev, calls) -> tuple:
+    """Each recorded bucket's integer state against a direct ``solve()``
+    of the same padded costs (the stepped compact policy): every lane on
+    the card, and lane (k mod B) of bucket k on the CPU, so lanes past 0
+    are covered too. Lanes never interact, so one lane alone at the
+    bucket's padded shape is that lane of the bucket; the CPU's plain
+    versions take seconds per lane at 2048^2, and all lanes of all
+    buckets took over 800 s on the H100 machine's CPU. Returns
+    (mismatches, seconds on the card, on the CPU)."""
+    from repro_torch.core.api import DispatchPolicy, solve
+    from repro_torch.core.problem import tree_map
+
+    bad, secs = [], {"card": 0.0, "cpu": 0.0}
+    for j, (spec, inputs, eps, sizes, _, batch) in enumerate(calls):
+        b = int(inputs["c"].shape[0])
+        eps = np.broadcast_to(np.asarray(eps, np.float64), (b,))
+        for where, lanes in ((dev, slice(None)),
+                             (torch.device("cpu"),
+                              slice(j % b, j % b + 1))):
+            t0 = time.monotonic()
+            direct = solve(spec, {k: v[lanes].to(where)
+                                  for k, v in inputs.items()},
+                           eps[lanes], DispatchPolicy(mode="compact"),
+                           sizes=None if sizes is None else sizes[lanes],
+                           want=("state",), device=where)
+            mine = tree_map(lambda a: a[lanes], batch.state())
+            diff = _state_diff(mine, direct.state())
+            secs["card" if where == dev else "cpu"] += (time.monotonic()
+                                                        - t0)
+            if diff:
+                bad.append((spec.name, tuple(inputs["c"].shape),
+                            str(where), lanes.start, diff))
+    return bad, secs["card"], secs["cpu"]
+
+
+def _latency_row(lat, wall, n_done):
+    lat = np.sort(np.asarray(lat, np.float64))
+    return {"p50_s": float(np.percentile(lat, 50)),
+            "p99_s": float(np.percentile(lat, 99)),
+            "instances_per_s": n_done / wall, "wall_s": wall,
+            "resolved": n_done}
+
+
+def _run_scheduler(torch, dev, reqs, *, faults=None, sink=None,
+                   deadline_req=None, record=True):
+    """Submit ``reqs`` to one ``AsyncOTScheduler`` on ``dev`` and wait;
+    then, alone in a second round, ``deadline_req`` with an expired
+    budget. Returns (futures, latencies of the resolved ones, deadline
+    future, wall seconds of the first round, stats, the
+    ``_RecordSolves`` or None without ``record``)."""
+    import contextlib
+
+    from repro_torch.serve.scheduler import AsyncOTScheduler
+
+    cfg = SIZES["serve"]
+    done_t = {}
+    rec = _RecordSolves() if record else contextlib.nullcontext()
+    with rec, AsyncOTScheduler(
+            eps=0.1, metric="euclidean", linger_ms=cfg["linger_ms"],
+            validate=True, device=dev, faults=faults, join_timeout_s=30,
+            sinks=() if sink is None else (sink,),
+            retry_backoff_s=0.001) as sched:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        futs = []
+        for i, (x, y, nu, mu, eps) in enumerate(reqs):
+            f = sched.submit(x, y, nu, mu, eps=eps, want=cfg["want"])
+            f.add_done_callback(
+                lambda _f, i=i: done_t.__setitem__(i, time.monotonic()))
+            futs.append((f, time.monotonic()))
+        if not sched.flush(timeout=600):
+            raise RuntimeError("the scheduler did not drain in 600 s")
+        wall = time.monotonic() - t0
+        lat = [done_t[i] - t for i, (f, t) in enumerate(futs)
+               if f.exception(timeout=0) is None]
+        dl = None
+        if deadline_req is not None:
+            x, y, nu, mu, eps = deadline_req
+            dl = sched.submit(x, y, nu, mu, eps=eps,
+                              want=("cost", "duals"), deadline=0.0)
+            if not sched.flush(timeout=600):
+                raise RuntimeError("the deadline request did not resolve")
+        stats = sched.stats_dict()
+        stats.pop("occupancy")          # long; dispatches says enough
+    return ([f for f, _ in futs], lat, dl, wall, stats,
+            rec if record else None)
+
+
+def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The serving path on the card (see the module docstring, phase 8):
+    (a) ``AsyncOTScheduler`` and (b) ``OTService.run_batch`` driven with
+    the launch counts set to 0 just before and read just after; then (c)
+    every bucket of both against the plain costs and a direct ``solve()``
+    on the card and the CPU, and (d) (a)'s requests again, unrecorded,
+    under a transient fault retried on the card."""
+    from repro_torch.core.problem import tree_map
+    from repro_torch.obs import InMemorySink
+    from repro_torch.serve.engine import OTService
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+    from repro_torch.serve.ft import RequestRejected
+
+    cfg = SIZES["serve"]
+    card = smi_line()           # beside every number of the phase
+    rng = np.random.default_rng([ctx["seed"], 8])
+    reqs = serving_requests(rng)
+    m_dl, eps_dl = cfg["deadline"]
+    deadline_req = (_points(rng, m_dl), _points(rng, m_dl), None, None,
+                    eps_dl)
+    n_lo, n_hi = cfg["images"]
+    images = [(_images(rng, n), _images(rng, n))
+              for n in rng.integers(n_lo, n_hi + 1, size=cfg["image_reqs"])]
+    ok = True
+
+    # -- (a) + (b), counted ---------------------------------------------
+    sink = InMemorySink()
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    futs, lat, dl, wall, stats, rec = _run_scheduler(
+        torch, dev, reqs, sink=sink, deadline_req=deadline_req)
+    torch.cuda.synchronize()
+    sched_launches = dict(ops.launches)
+    svc = OTService(eps=cfg["image_eps"], metric="l1", device=dev,
+                    want=("cost", "duals", "state"))
+    for x, y in images:
+        svc.submit(x, y)
+    with _RecordSolves() as svc_rec:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sols_b = svc.run_batch()
+        for s in sols_b:
+            s.cost
+        torch.cuda.synchronize()
+        wall_b = time.monotonic() - t0
+    launches["serve"] = dict(ops.launches)
+    peak_recorded = torch.cuda.max_memory_allocated(dev)
+    svc_launches = {k: launches["serve"][k] - sched_launches[k]
+                    for k in sched_launches}
+    syncs = dict(rdev.sync_counts)
+
+    # (a)'s outcomes
+    nan_at = cfg["nan_at"]
+    sols, levels, degraded = {}, [], 0
+    for i, f in enumerate(futs):
+        exc = f.exception(timeout=0)
+        if i == nan_at:
+            ok &= isinstance(exc, RequestRejected) and exc.code == 1
+            continue
+        if exc is not None:
+            log(f"[8] request {i} failed: {exc!r}")
+            ok = False
+            continue
+        sols[i] = sol = f.result(timeout=0)
+        levels.append(sol.stats.ladder_level)
+        degraded += int(sol.degraded)
+        ok &= bool(np.isfinite(sol.cost) and sol.dual_feasible())
+    # the NaN request's bucket went on without it
+    rej = sink.events("rejected")
+    kept = [s.get("kept") for s in sink.spans("collate")
+            if len(rej) == 1 and s["trace_id"] == rej[0]["trace_id"]]
+    dl_sol = dl.result(timeout=0)
+    res_a = {
+        "card": card, "requests": len(reqs),
+        **_latency_row(lat, wall, len(sols)),
+        "buckets": len(rec.calls), "stats": stats,
+        "ladder_levels": sorted(set(levels)), "degraded": degraded,
+        "nan_request_rejected": isinstance(futs[nan_at].exception(0),
+                                           RequestRejected),
+        "nan_bucket_kept": kept,
+        "deadline": {"degraded": dl_sol.degraded,
+                     "dual_feasible": dl_sol.dual_feasible(),
+                     "additive_gap": dl_sol.additive_gap(),
+                     "dispatches": dl_sol.stats.dispatches},
+        "launches": sched_launches}
+    log(f"[8] (a) scheduler {json.dumps(res_a, default=float)}")
+    ok &= (set(levels) == {0} and degraded == 0 and len(kept) == 1
+           and kept[0] >= 1 and dl_sol.degraded
+           and dl_sol.dual_feasible() and stats["rejected"] == 1
+           and stats["degraded"] == 1 and stats["retries"] == 0)
+
+    # (b)'s outcomes
+    levels_b = {s.stats.ladder_level for s in sols_b}
+    ok_b = (levels_b == {0} and not any(s.degraded for s in sols_b)
+            and all(np.isfinite(s.cost) and s.dual_feasible()
+                    for s in sols_b))
+    res_b = {"card": card, "requests": len(images), "n": [int(x.shape[0])
+                                           for x, _ in images],
+             "wall_s": wall_b, "instances_per_s": len(sols_b) / wall_b,
+             "buckets": len(svc_rec.calls), "ladder_levels":
+             sorted(levels_b), "launches": svc_launches,
+             "stats": svc.stats_dict()}
+    log(f"[8] (b) service {json.dumps(res_b, default=float)}")
+    ok &= ok_b
+    for name in ("cost_matrix", "slack_propose"):
+        ok &= sched_launches[name] > 0 and svc_launches[name] > 0
+    # one cost launch per bucket (the deadline request's bucket too)
+    ok &= sched_launches["cost_matrix"] == len(rec.costs) == len(rec.calls)
+    ok &= svc_launches["cost_matrix"] == len(svc_rec.costs)
+
+    # -- (c) every bucket: costs against the plain version, state against
+    # direct solve on the card and the CPU -------------------------------
+    t0 = time.monotonic()
+    cost_rows, costs_ok = _bucket_costs_equal(torch,
+                                              rec.costs + svc_rec.costs)
+    torch.cuda.synchronize()
+    cost_s = time.monotonic() - t0
+    # the deadline request's bucket was cut: a direct solve runs on
+    bad, card_s, cpu_s = _bucket_states_equal(
+        torch, dev, rec.calls[:-1] + svc_rec.calls)
+    res_c = {"card": card, "costs": cost_rows, "costs_ok": costs_ok,
+             "cost_check_s": cost_s,
+             "buckets": len(rec.calls) - 1 + len(svc_rec.calls),
+             "mismatches": bad, "card_s": card_s, "cpu_lane_s": cpu_s,
+             "wall_s": time.monotonic() - t0}
+    log(f"[8] (c) buckets against plain costs and direct solve "
+        f"{json.dumps(res_c)}")
+    ok &= costs_ok and not bad
+
+    # -- (d) (a) again with nothing recorded, a transient retried on the
+    # card; its peak is the service's own --------------------------------
+    states_a = {i: tree_map(lambda t: t.cpu(), sol.state())
+                for i, sol in sols.items()}
+    del futs, f, exc, sols, sol, dl, dl_sol, rec, svc_rec, sols_b, s, svc
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    inj = FaultInjector(FaultPlan(transient_dispatches=1))
+    futs_d, lat_d, _, wall_d, stats_d, _ = _run_scheduler(
+        torch, dev, reqs, faults=inj, record=False)
+    torch.cuda.synchronize()
+    peak_service = torch.cuda.max_memory_allocated(dev)
+    same, levels_d, retried = True, set(), 0
+    for i, f in enumerate(futs_d):
+        exc = f.exception(timeout=0)
+        if i == nan_at:
+            same &= isinstance(exc, RequestRejected)
+            continue
+        if exc is not None:
+            log(f"[8] (d) request {i} failed: {exc!r}")
+            same = False
+            continue
+        sol = f.result(timeout=0)
+        levels_d.add(sol.stats.ladder_level)
+        retried += sol.stats.attempts == 2
+        same &= not _state_diff(sol.state(), states_a[i])
+    res_d = {"card": card, "log": inj.log, "ladder_levels":
+             sorted(levels_d), "requests_retried_on_card": retried,
+             "state_equal_to_a": bool(same), "stats": stats_d,
+             **_latency_row(lat_d, wall_d, len(futs_d) - 1)}
+    log(f"[8] (d) transient retried on the card "
+        f"{json.dumps(res_d, default=float)}")
+    ok &= bool(same and levels_d == {0} and retried > 0
+               and stats_d["retries"] == 1
+               and inj.log == [("transient", 0)])
+    res_mem = {"card": card, "serve": launches["serve"], "syncs": syncs,
+               "max_memory_allocated_recorded_a_b": peak_recorded,
+               "max_memory_allocated_service_d": peak_service,
+               "memory_allocated_before_d": held}
+    log(f"[8] launches and memory {json.dumps(res_mem)}")
+    record["phases"]["serving"] = {"a": res_a, "b": res_b, "c": res_c,
+                                   "d": res_d, **res_mem}
+    return ok
 
 if __name__ == "__main__":
     sys.exit(main())

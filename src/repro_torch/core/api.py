@@ -28,18 +28,23 @@ form, a list of per-instance ``Solution`` views for the ragged form. With
 ``want=None`` the legacy surfaces come back: ``(result, stats)`` for the
 dict form, per-instance dicts for the ragged form.
 
-Paths of the reference this slice of the port does not have yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them:
-``mode="mesh"`` and ``validate=True``.
+``DispatchPolicy(validate=True)`` runs the admission check
+(``core/validate.py``) on every bucket and raises ``RequestRejected``
+before any phase runs; ``deadline=`` cuts the compacting driver's chunk
+loop at a wall-clock budget and flags the cut lanes
+``Solution.degraded``.
+
+Multi-device dispatch (``mode="mesh"``, ``mesh=``) is not ported yet and
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..obs.metrics import now as _now
 from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
 from .device import resolve_device
 from .problem import (  # noqa: F401  (re-exported with solve)
@@ -51,8 +56,6 @@ from .problem import (  # noqa: F401  (re-exported with solve)
 )
 from . import solution as solution_mod
 from .solution import Solution, SolutionBatch, SolveStats
-
-_now = time.monotonic
 
 _MODES = ("auto", "lockstep", "compact", "mesh")
 _SOLVERS = ("pushrelabel", "sinkhorn", "hybrid", "auto")
@@ -86,7 +89,11 @@ class DispatchPolicy:
         table, so "auto" equals naming its choice). Assignment batches
         ignore it. The chosen solver and the prediction land in
         ``SolveStats``.
-      validate: not ported yet; only the default (False) is accepted.
+      validate: run the admission check (``core/validate.py``) on every
+        dispatched bucket and raise ``RequestRejected`` naming the
+        offending lanes before any phase runs. The serving layers
+        quarantine per request instead (one Future fails, the bucket
+        goes on); this flag is the all-or-nothing direct-API equivalent.
     """
     mode: str = "auto"
     mesh: Any = None
@@ -112,13 +119,32 @@ class DispatchPolicy:
             raise NotImplementedError(
                 "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
                 "11, multi-device)")
-        if self.validate:
-            raise NotImplementedError(
-                "validate=True is not ported yet (ROADMAP.md Queue 1 item "
-                "7, admission checks)")
 
     def resolved_mode(self) -> str:
         return "compact" if self.mode == "auto" else self.mode
+
+    @classmethod
+    def from_legacy(cls, compact: bool, mesh=None, *, chunk=None,
+                    buckets=None, guaranteed: bool = False,
+                    placement: str = "auto",
+                    want: Optional[Tuple[str, ...]] = None,
+                    solver: str = "pushrelabel") -> "DispatchPolicy":
+        """Map the legacy ``compact=`` / ``mesh=`` keywords
+        (``solve_*_ragged``, ``OTService``) onto a policy: the one place
+        that mapping and its mesh-requires-compact rule live. A ``mesh``
+        raises ``NotImplementedError`` (multi-device dispatch is ROADMAP.md
+        Queue 1 item 11)."""
+        if mesh is not None and not compact:
+            raise ValueError("mesh dispatch requires compact=True (the "
+                             "distributed driver is the compacting "
+                             "driver)")
+        mode = ("mesh" if mesh is not None
+                else ("compact" if compact else "lockstep"))
+        return cls(mode=mode, mesh=mesh, placement=placement, chunk=chunk,
+                   buckets=None if buckets is None else tuple(buckets),
+                   guaranteed=guaranteed,
+                   want=None if want is None else tuple(want),
+                   solver=solver)
 
 
 def _resolve_solver(spec, policy: DispatchPolicy, inputs, eps):
@@ -152,11 +178,14 @@ def _resolve_solver(spec, policy: DispatchPolicy, inputs, eps):
 
 def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
              policy: Optional[DispatchPolicy] = None,
-             keep_state: bool = False, obs=None, device=None, **prep_kw):
+             keep_state: bool = False, deadline: Optional[float] = None,
+             obs=None, device=None, **prep_kw):
     """Solve ONE pre-batched bucket (dict of (B, ...) operands) under
     ``policy`` on ``device`` (default CUDA). Returns ``(result, stats)``:
     ``stats`` is None for plain lockstep, a CompactionStats for compact
-    (and for lockstep with ``keep_state``).
+    (and for lockstep with ``keep_state``). ``deadline`` is an absolute
+    ``repro_torch.obs.now()`` budget for the compacting driver (lockstep
+    has no chunk loop to cut, so the combination raises).
 
     ``policy.solver`` routes the bucket through the solver portfolio; the
     chosen solver, the cost model's prediction and the dispatch wall time
@@ -171,12 +200,13 @@ def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
         from ..portfolio.hybrid import dispatch_hybrid
 
         r, stats = dispatch_hybrid(inputs, eps, sizes=sizes, policy=policy,
-                                   keep_state=keep_state, obs=obs,
-                                   device=dev, **prep_kw)
+                                   keep_state=keep_state, deadline=deadline,
+                                   obs=obs, device=dev, **prep_kw)
     else:
         r, stats = _dispatch_one(spec, inputs, eps, sizes=sizes,
                                  policy=policy, keep_state=keep_state,
-                                 obs=obs, device=dev, **prep_kw)
+                                 deadline=deadline, obs=obs, device=dev,
+                                 **prep_kw)
     solve_s = _now() - t0
     if stats is not None:
         stats.solve_s = solve_s
@@ -190,11 +220,20 @@ def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
 
 def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
                   policy: DispatchPolicy, keep_state: bool = False,
-                  obs=None, device=None, **prep_kw):
+                  deadline: Optional[float] = None, obs=None, device=None,
+                  **prep_kw):
     mode = policy.resolved_mode()
     if policy.fused:
         spec = fused_variant(spec)
+    if policy.validate:
+        from .validate import check_admission
+        check_admission(inputs, sizes=sizes)
     if mode == "lockstep":
+        if deadline is not None:
+            raise ValueError(
+                "deadline requires a chunked driver (mode='compact'); the "
+                "lockstep path runs one unbounded chunk that cannot be "
+                "cut mid-flight")
         eps_u = np.unique(np.asarray(eps, np.float64))
         if eps_u.size > 1:
             raise ValueError("per-instance eps requires compact=True")
@@ -211,7 +250,8 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
     k = DEFAULT_CHUNK if policy.chunk is None else int(policy.chunk)
     return solve_compacting(
         spec, inputs, eps, sizes=sizes, k=k, guaranteed=policy.guaranteed,
-        keep_state=keep_state, obs=obs, device=device, **prep_kw)
+        keep_state=keep_state, deadline=deadline, obs=obs, device=device,
+        **prep_kw)
 
 
 def _wrap_solution(spec, inputs: Dict[str, Any], eps, policy: DispatchPolicy,
@@ -228,16 +268,20 @@ def _wrap_solution(spec, inputs: Dict[str, Any], eps, policy: DispatchPolicy,
                                     batch=b, bucket=bucket, solver=solver,
                                     predicted_s=predicted)
     state = getattr(stats, "final_state", None) if stats is not None else None
+    un = getattr(stats, "unconverged", None) if stats is not None else None
+    degraded = None if un is None else np.asarray(un, bool)[:b]
     return SolutionBatch(
         spec, r, stats=sstats, driver_stats=stats, inputs=inputs,
         sizes=sizes, eps=eps_user, eps_internal=eps_internal,
-        guaranteed=policy.guaranteed, want=want, state=state)
+        guaranteed=policy.guaranteed, want=want, state=state,
+        degraded=degraded)
 
 
 def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
           policy: Optional[DispatchPolicy] = None, *, sizes=None,
           keep_state: bool = False, want: Optional[Sequence[str]] = None,
-          obs=None, device=None, **prep_kw
+          deadline: Optional[float] = None, obs=None, device=None,
+          **prep_kw
           ) -> Union[SolutionBatch, List[Solution], Tuple[Any, Any],
                      List[dict]]:
     """The front door. Two input forms:
@@ -259,6 +303,13 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
     state. ``obs`` is any object with ``event(name, **fields)``.
     ``device`` defaults to CUDA; inputs may be numpy arrays or tensors and
     are moved there.
+
+    ``deadline`` (absolute ``repro_torch.obs.now()``, the
+    ``time.monotonic`` clock) stops the compacting driver's dispatches
+    when the next chunk would overrun it; lanes cut before their
+    termination predicate fired come back ``Solution.degraded=True``,
+    still primal-feasible with eps-feasible duals, so
+    ``dual_feasible()`` / ``additive_gap()`` re-validate each answer.
     """
     policy = policy or DispatchPolicy()
     dev = resolve_device(device)
@@ -276,8 +327,8 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
     if isinstance(instances, dict):
         inputs = spec.canonicalize(instances, dev)
         r, stats = dispatch(spec, inputs, eps, sizes=sizes, policy=policy,
-                            keep_state=keep_state, obs=obs, device=dev,
-                            **prep_kw)
+                            keep_state=keep_state, deadline=deadline,
+                            obs=obs, device=dev, **prep_kw)
         if want is None:
             return r, stats
         # re-resolve (deterministic) to wrap with the spec that produced r:
@@ -289,8 +340,8 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
                               sizes=sizes, want=want, solver=solver,
                               predicted=predicted)
     sols = _solve_ragged(spec, list(instances), eps, policy,
-                         keep_state=keep_state, want=want, obs=obs,
-                         device=dev, **prep_kw)
+                         keep_state=keep_state, want=want,
+                         deadline=deadline, obs=obs, device=dev, **prep_kw)
     if want is not None:
         return sols
     out = []
@@ -304,7 +355,8 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
 
 def _solve_ragged(spec, instances: list, eps, policy: DispatchPolicy, *,
                   keep_state: bool = False,
-                  want: Optional[Tuple[str, ...]] = None, obs=None,
+                  want: Optional[Tuple[str, ...]] = None,
+                  deadline: Optional[float] = None, obs=None,
                   device=None, **prep_kw) -> List[Solution]:
     from .batched import DEFAULT_BUCKETS, bucket_instances
 
@@ -330,7 +382,8 @@ def _solve_ragged(spec, instances: list, eps, policy: DispatchPolicy, *,
             sz = np.asarray([shapes[i] for i in idx], np.int32)
             r, stats = dispatch(spec, inputs, eps_arr[idx], sizes=sz,
                                 policy=policy, keep_state=keep_state,
-                                obs=obs, device=device, **prep_kw)
+                                deadline=deadline, obs=obs, device=device,
+                                **prep_kw)
             # per-bucket re-resolution ("auto" may route buckets to
             # different solvers); deterministic, so it matches dispatch
             solver, wspec, predicted = _resolve_solver(spec, policy, inputs,

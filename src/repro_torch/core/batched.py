@@ -68,6 +68,12 @@ def pad_stack(arrays, shape) -> torch.Tensor:
     return torch.stack(out)
 
 
+def take_lanes(t: torch.Tensor, idx) -> torch.Tensor:
+    """The lanes ``idx`` (host indices) of a batched tensor, on its
+    device."""
+    return t.index_select(0, torch.as_tensor(idx, device=t.device))
+
+
 def solve_lockstep(spec, inputs, eps: float, *, sizes=None,
                    guaranteed: bool = False, keep_state: bool = False,
                    device=None, **prep_kw):
@@ -108,3 +114,45 @@ def solve_ot_batched(c, nu, mu, eps: float, *, sizes=None, theta=None,
     return solve_lockstep(OT, {"c": c, "nu": nu, "mu": mu}, eps,
                           sizes=sizes, guaranteed=guaranteed,
                           theta=theta, device=device)[0]
+
+
+def _ragged_policy(compact: bool, chunk, mesh, buckets, guaranteed: bool):
+    """Map the legacy ragged keyword surface onto a DispatchPolicy."""
+    from .api import DispatchPolicy
+
+    return DispatchPolicy.from_legacy(compact, mesh, chunk=chunk,
+                                      buckets=buckets,
+                                      guaranteed=guaranteed)
+
+
+def solve_ot_ragged(instances, eps, *,
+                    buckets: Sequence[int] = DEFAULT_BUCKETS,
+                    guaranteed: bool = False, compact: bool = True,
+                    chunk: int | None = None, mesh=None, device=None):
+    """Solve a ragged list of ``(c, nu, mu)`` OT instances by bucketed
+    batched dispatch on ``device`` (None: CUDA). Returns per-instance
+    dicts in input order. ``compact=True`` (default) runs each bucket on
+    the compacting driver (``eps`` may then be per instance);
+    ``compact=False`` runs lockstep, sub-grouped by eps. ``mesh`` is not
+    ported yet (ROADMAP.md Queue 1 item 11). A thin wrapper over
+    ``core/api.solve(OT, ...)``."""
+    from .api import solve
+
+    return solve(OT, instances, eps,
+                 _ragged_policy(compact, chunk, mesh, buckets, guaranteed),
+                 device=device)
+
+
+def solve_assignment_ragged(cs, eps, *,
+                            buckets: Sequence[int] = DEFAULT_BUCKETS,
+                            guaranteed: bool = False, compact: bool = True,
+                            chunk: int | None = None, mesh=None,
+                            device=None):
+    """Solve a ragged list of assignment cost matrices by bucketed batched
+    dispatch on ``device`` (None: CUDA); per-instance dicts in input
+    order. ``compact`` and ``mesh`` as in :func:`solve_ot_ragged`."""
+    from .api import solve
+
+    return solve(ASSIGNMENT, cs, eps,
+                 _ragged_policy(compact, chunk, mesh, buckets, guaranteed),
+                 device=device)

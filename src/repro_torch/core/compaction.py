@@ -16,20 +16,25 @@ lane until the slowest converges; this driver retires converged lanes:
 Per-lane trajectories equal the lockstep path's and the unbatched
 solver's: lanes never interact, and the hash keys depend only on the
 within-instance (row, col, phase, round). ``eps`` may be per instance.
+
+``deadline`` (an absolute time on ``repro_torch.obs.now``, the clock the
+serving layers' spans and budgets use) cuts the loop when the next chunk
+would overrun it; the lanes still live at the cut come back best-so-far
+(``stats.unconverged``, ``Solution.degraded``).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+# the serving stack's one monotonic clock: chunk timing and deadline
+# checks share a time base with the scheduler's spans and budgets
+from ..obs.metrics import now as _now
 from .device import host_numpy
 from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
-
-_now = time.monotonic  # chunk timing
 
 DEFAULT_CHUNK = 8
 
@@ -54,6 +59,12 @@ class CompactionStats:
     solve_s: Optional[float] = None
     solver: str = "pushrelabel"
     predicted_s: Optional[float] = None
+    # deadline cut: ``deadline_hit`` records that the loop stopped because
+    # its next chunk would overrun the budget; ``unconverged`` is the
+    # (dispatched_batch,) bool mask (original batch order) of the lanes
+    # whose termination predicate had not fired at the cut
+    deadline_hit: bool = False
+    unconverged: Optional[np.ndarray] = None
 
     def as_dict(self) -> dict:
         return {
@@ -65,6 +76,7 @@ class CompactionStats:
             "slot_phases": self.slot_phases,
             "phases_needed": self.phases_needed,
             "lockstep_slot_phases": self.lockstep_slot_phases,
+            "deadline_hit": self.deadline_hit,
         }
 
 
@@ -83,16 +95,25 @@ def _flush(buf, cur_s, idx: np.ndarray):
 
 
 def _drive(data, state, run_fn, conv_fn, max_chunks: int,
-           stats: CompactionStats, obs=None):
+           stats: CompactionStats, deadline: Optional[float] = None,
+           obs=None):
     """The compacting loop over a per-lane ``data`` dict and a state
     NamedTuple. ``run_fn(data, state)`` advances every lane by at most
     ``stats.chunk`` phases; ``conv_fn(data, state)`` gives ((B,) bool
     converged, (B,) int32 phases). The fetch of both, stacked, is the
     loop's one device->host read per chunk. Returns the full-size state
-    with every lane terminated, in original batch order.
+    with every lane terminated (or cut), in original batch order.
+
+    ``deadline`` is an absolute ``_now()`` instant: after each chunk the
+    host clock (read after the chunk's fetch, which already waited on the
+    device) plus that chunk's duration is held against it, and the loop
+    stops when the NEXT chunk would overrun, flushing best-so-far state
+    and recording the still-live lanes on ``stats``. At least one chunk
+    always runs.
 
     ``obs`` (any object with ``event(name, **fields)``) gets one
-    ``"chunk"`` event per dispatch."""
+    ``"chunk"`` event per dispatch and a ``"deadline-cut"`` event when the
+    budget stops the loop."""
     idx = np.arange(stats.dispatched_batch)
     # the result buffer is born at the first flush, where idx is still the
     # identity, so it never aliases a state a later chunk updates
@@ -119,6 +140,21 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
             obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
                       phases=dph)
         if live == 0:
+            buf = _flush(buf, cur_s, idx)
+            break
+        if deadline is not None and _now() + t_chunk >= deadline:
+            # another chunk (estimated by the one that just ran) would
+            # overrun the budget: flush best-so-far state and mark the
+            # lanes that had not terminated. The epilogue is defined on
+            # any phase boundary (the phase cap already ends lanes
+            # unconverged), so the answer is primal-feasible and its
+            # certificate reports the true, larger gap.
+            stats.deadline_hit = True
+            un = np.zeros((stats.dispatched_batch,), bool)
+            un[idx[~conv]] = True
+            stats.unconverged = un
+            if obs is not None:
+                obs.event("deadline-cut", bucket=bb, live=live)
             buf = _flush(buf, cur_s, idx)
             break
         nb = pow2_at_least(live)
@@ -148,7 +184,8 @@ def max_chunk_dispatches(phase_cap: np.ndarray, k: int) -> int:
 
 def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
                      guaranteed: bool = False, keep_state: bool = False,
-                     obs=None, device=None, **prep_kw):
+                     deadline: Optional[float] = None, obs=None,
+                     device=None, **prep_kw):
     """Solve a (B, M, N) batch of ``spec`` instances with convergence
     compaction.
 
@@ -160,6 +197,9 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
       k: phases per chunk; any value gives identical results.
       keep_state: keep the final pre-completion integer state on
         ``stats.final_state``.
+      deadline: absolute ``repro_torch.obs.now()`` budget; the loop stops
+        when the next chunk would overrun it and returns best-so-far
+        answers (``stats.deadline_hit`` / ``unconverged``).
       obs: see :func:`_drive`.
       device: where the solve runs; None means CUDA (raising without it).
       prep_kw: spec-specific prep options (OT: ``theta``).
@@ -181,7 +221,8 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
     final = _drive(
         data, state0, lambda d, s: spec.run_phases(d, s, k),
         lambda d, s: (spec.converged(d, s), s.phases),
-        max_chunk_dispatches(p.phase_cap, k), stats, obs=obs)
+        max_chunk_dispatches(p.phase_cap, k), stats, deadline=deadline,
+        obs=obs)
     r = spec.epilogue(ctx, final)
     phases = np.asarray(final.phases[:b].cpu(), np.int64)
     stats.phases_needed = int(phases.sum())

@@ -27,7 +27,7 @@ reference specs wait for a later slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,47 @@ class PreparedBatch(NamedTuple):
     threshold: np.ndarray      # (bp,) int32 host-float64-derived
     phase_cap: np.ndarray      # (bp,) int32 safety bound per lane
     bp: int                    # dispatched batch (power of two)
+
+
+class ProblemSpec(Protocol):
+    """The stepped-core contract (see the module docstring); every
+    function takes the batch axis in front. Implementations are
+    stateless. The reference's matrix-placement hooks (``matrix_instance``
+    / ``matrix_stack``) wait for multi-device dispatch (ROADMAP.md Queue
+    1 item 11)."""
+    name: str
+    # ``ops`` entries the epilogue consumes verbatim (merged into ctx by
+    # the drivers instead of passing through the prologue)
+    ctx_ops: Tuple[str, ...]
+    # artifacts of the Solution surface, and whether the result already
+    # carries the pre-completion state
+    artifacts: Tuple[str, ...]
+    state_on_result: bool
+
+    def canonicalize(self, inputs: Dict[str, Any],
+                     device=None) -> Dict[str, Any]: ...
+    def batch_shape(self, inputs: Dict[str, Any]) -> Tuple[int, int, int]: ...
+    def prepare(self, inputs, eps, *, sizes=None, guaranteed: bool = False,
+                min_batch: int = 1, **kw) -> PreparedBatch: ...
+    def prologue(self, ops: Dict[str, Any]): ...
+    def init_state(self, data: Dict[str, Any], ctx: Dict[str, Any]): ...
+    def run_phases(self, data: Dict[str, Any], state, k: int): ...
+    def converged(self, data: Dict[str, Any], state): ...
+    def epilogue(self, ctx: Dict[str, Any], state): ...
+    def empty_result(self, m: int, n: int, device=None): ...
+    def trim(self, r, b: int): ...
+    def instance_shape(self, inst) -> Tuple[int, int]: ...
+    def pad_group(self, insts, key) -> Dict[str, Any]: ...
+    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
+                       guaranteed: bool = False, keep_state: bool = False,
+                       device=None, **kw): ...
+    def artifact_device(self, name: str, r, state) -> Dict[str, Any]: ...
+    def artifact_plan_dense(self, host: Dict[str, np.ndarray], batch: int,
+                            shape: Tuple[int, int]) -> np.ndarray: ...
+    def artifact_plan_sparse(self, r, fetch, batch: int,
+                             shape: Tuple[int, int]): ...
+    def artifact_state(self, r, state): ...
+    def legacy_instance_dict(self, sol) -> Dict[str, Any]: ...
 
 
 def _sizes_arrays(sizes, b, m, n):

@@ -51,6 +51,11 @@ class SolveStats:
     dispatches: int = 1
     chunk: Optional[int] = None
     occupancy: Tuple[Tuple[int, int], ...] = ()
+    # fault-tolerance accounting (the serving layers fill these in)
+    deadline_hit: bool = False     # chunk loop cut by a wall-clock budget
+    attempts: int = 1              # dispatch attempts incl. ladder retries
+    ladder_level: int = 0          # 0 = configured policy; higher = degraded
+    quarantined: int = 0           # requests quarantined from this bucket
     # solver-portfolio accounting (core/api records these when
     # DispatchPolicy.solver routes away from the default)
     solver: str = "pushrelabel"    # solver that produced this result
@@ -72,6 +77,7 @@ class SolveStats:
             dispatches=int(st.dispatches) or 1,
             chunk=int(st.chunk) if st.chunk else None,
             occupancy=tuple(tuple(o) for o in st.occupancy),
+            deadline_hit=bool(st.deadline_hit),
             solver=solver, predicted_s=predicted_s, actual_s=st.solve_s,
         )
 
@@ -80,6 +86,9 @@ class SolveStats:
             "mode": self.mode, "batch": self.batch, "bucket": self.bucket,
             "dispatches": self.dispatches, "chunk": self.chunk,
             "occupancy": [list(o) for o in self.occupancy],
+            "deadline_hit": self.deadline_hit, "attempts": self.attempts,
+            "ladder_level": self.ladder_level,
+            "quarantined": self.quarantined,
             "solver": self.solver, "predicted_s": self.predicted_s,
             "actual_s": self.actual_s,
         }
@@ -225,7 +234,8 @@ class SolutionBatch:
                  sizes: Optional[np.ndarray], eps: np.ndarray,
                  eps_internal: np.ndarray, guaranteed: bool = False,
                  want: Optional[Tuple[str, ...]] = None,
-                 state: Any = None) -> None:
+                 state: Any = None,
+                 degraded: Optional[np.ndarray] = None) -> None:
         self.spec = spec
         self.stats = stats
         self.guaranteed = guaranteed
@@ -241,6 +251,8 @@ class SolutionBatch:
                 [np.full((self.batch,), m, np.int32),
                  np.full((self.batch,), n, np.int32)], axis=1)
         self.sizes = np.asarray(sizes, np.int32)
+        self._degraded = (None if degraded is None
+                          else np.asarray(degraded, bool)[:self.batch])
         self.eps = np.asarray(eps, np.float64)
         self.eps_internal = np.asarray(eps_internal, np.float64)
         self.want = None if want is None else tuple(want)
@@ -318,6 +330,17 @@ class SolutionBatch:
     def cost(self) -> np.ndarray:
         self._check("cost")
         return self._fetch("cost")["cost"][:self.batch]
+
+    def degraded(self) -> np.ndarray:
+        """(B,) bool: lanes whose chunk loop was cut by a deadline before
+        their termination predicate fired. A degraded lane's answer is
+        still primal-feasible with eps-feasible duals (invariant I2 holds
+        at every phase), so its certificates stay valid; only its
+        ``additive_gap()`` is larger. Not gated by ``want``: O(B) bools
+        known at dispatch time."""
+        if self._degraded is None:
+            return np.zeros((self.batch,), bool)
+        return self._degraded
 
     def phases(self) -> np.ndarray:
         return self._fetch("scalars")["phases"][:self.batch]
@@ -472,6 +495,12 @@ class Solution:
         return self._b.stats
 
     @property
+    def degraded(self) -> bool:
+        """True when this lane was cut by a deadline; re-validate with
+        ``dual_feasible()`` / ``additive_gap()`` (still sound)."""
+        return bool(self._b.degraded()[self._j])
+
+    @property
     def cost(self) -> float:
         return float(self._b.cost()[self._j])
 
@@ -528,6 +557,9 @@ class Solution:
         st = self._b._driver_stats
         if st is not None:
             out["dispatches"] = st.dispatches
+        if self.degraded:
+            # absent on every non-degraded result, as in the reference
+            out["degraded"] = True
         return out
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety

@@ -57,7 +57,11 @@ static __device__ __forceinline__ float finish(float x2, float y2,
   if (kMetric == 2) return acc;
   // (|x|^2 + |y|^2) - 2 g, rounded step by step as the reference
   float v = __fsub_rn(__fadd_rn(x2, y2), __fmul_rn(2.f, acc));
-  v = fmaxf(v, 0.f);
+  // max(v, 0) that keeps a NaN, as the reference's jnp.maximum and the
+  // plain version's clamp_min do (fmaxf would return 0 and hide a
+  // poisoned point from the admission check); bit-equal to fmaxf
+  // everywhere else
+  v = v != v ? v : fmaxf(v, 0.f);
   if (kMetric == 1) v = __fsqrt_rn(__fadd_rn(v, 1e-30f));
   return v;
 }

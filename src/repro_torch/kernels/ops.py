@@ -12,6 +12,12 @@ library is named by the hash of its source and of every header the source
 includes from ``csrc/``, so an edited source or header is rebuilt.
 ``launches`` counts, per kernel, the launches made through these wrappers,
 and nothing else.
+
+Both are safe from several threads (the serving scheduler launches from a
+collate and a dispatch thread): one module lock covers the whole
+check-build-load of ``build_kernels``, so each source is compiled once
+however many threads reach first use together, and the launch counts are
+updated under a lock of their own.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -64,11 +71,17 @@ launches = {name: 0 for name in _ENTRY}
 build_log: dict = {}
 _libs: dict = {}
 _workspace_fns: dict = {}
+# guards the check-build-load of build_kernels (and _libs /
+# _workspace_fns / build_log, which only it writes)
+_build_lock = threading.Lock()
+# guards launches
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -104,9 +117,18 @@ def source_digest(src: Path) -> str:
 
 def build_kernels() -> float:
     """Build (if needed) and load every kernel; returns the seconds spent.
-    Raises if a source fails to compile or load."""
-    if len(_libs) == len(_ENTRY):
+    Raises if a source fails to compile or load. Thread-safe: callers that
+    arrive while another thread builds wait for it and find the kernels
+    loaded."""
+    if len(_libs) == len(_ENTRY):     # published last, see _build_locked
         return 0.0
+    with _build_lock:
+        if len(_libs) == len(_ENTRY):
+            return 0.0
+        return _build_locked()
+
+
+def _build_locked() -> float:
     t0 = time.monotonic()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {}
@@ -120,7 +142,10 @@ def build_kernels() -> float:
             if so.exists():
                 continue
             nvcc = nvcc or _nvcc()
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            # unique per process and thread: another process may build
+            # the same library into the same directory
+            tmp = so.with_name(
+                f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             procs[name] = (subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
@@ -141,18 +166,23 @@ def build_kernels() -> float:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    libs, ws_fns = {}, {}
     for name, (_, so) in todo.items():
         lib = ctypes.CDLL(str(so))
         _, fn_name, argtypes = _ENTRY[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
+        libs[name] = fn
         if name in _WORKSPACE:
             ws = getattr(lib, _WORKSPACE[name])
             ws.argtypes = [_I, _I, _I]
             ws.restype = ctypes.c_longlong
-            _workspace_fns[name] = ws
+            ws_fns[name] = ws
+    # the workspace functions first: a complete _libs is what the unlocked
+    # check in build_kernels reads as "loaded"
+    _workspace_fns.update(ws_fns)
+    _libs.update(libs)
     return time.monotonic() - t0
 
 
@@ -169,7 +199,8 @@ def _launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"repro_torch: {name} kernel launch failed "
                            f"(cudaError {err})")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -122,19 +122,20 @@ WARM_OT = _WarmOTSpec()
 
 
 def warm_duals(inputs, eps, *, sizes=None, guaranteed: bool = False,
-               chunk=None, obs=None, device=None,
+               chunk=None, deadline=None, obs=None, device=None,
                warm_iters: int = _WARM_ITERS):
     """Stages 1 and 2 of the hybrid: a coarse iteration-capped Sinkhorn
     run (always compacting: it is the cheap stage), then the potentials
     rounded onto the finish solve's integer grid (the INTERNAL eps: /3
-    under ``guaranteed``). ``inputs`` are canonicalized tensors. Returns
+    under ``guaranteed``). ``inputs`` are canonicalized tensors;
+    ``deadline`` cuts the Sinkhorn run like any compacting solve. Returns
     ``((B, m) int32 y_b0, the Sinkhorn run's CompactionStats)``."""
     b = int(inputs["c"].shape[0])
     eps_user = np.broadcast_to(np.asarray(eps, np.float64), (b,)).copy()
     _, st1 = solve_compacting(
         SINKHORN, inputs, np.maximum(eps_user, _COARSE_EPS), sizes=sizes,
-        k=chunk or DEFAULT_CHUNK, keep_state=True, obs=obs, device=device,
-        max_iters=warm_iters)
+        k=chunk or DEFAULT_CHUNK, keep_state=True, deadline=deadline,
+        obs=obs, device=device, max_iters=warm_iters)
     warm = st1.final_state
     dev = inputs["c"].device
     eps_int = torch.as_tensor(eps_array(eps_user, b, guaranteed),
@@ -146,24 +147,28 @@ def warm_duals(inputs, eps, *, sizes=None, guaranteed: bool = False,
 
 
 def dispatch_hybrid(inputs, eps, *, sizes=None, policy=None,
-                    keep_state: bool = False, obs=None, device=None,
-                    theta=None, warm_iters: int = _WARM_ITERS):
+                    keep_state: bool = False, deadline=None, obs=None,
+                    device=None, theta=None,
+                    warm_iters: int = _WARM_ITERS):
     """Solve one pre-batched OT bucket hybrid-style: ``warm_duals``, then
     the push-relabel finish (``WARM_OT``) dispatched under ``policy``'s
     mode and chunk with the warm ``y_b0``, on the stepped route. Returns
     ``(OTResult, stats)`` with the finish driver's stats; the stage-1
-    dispatches are folded into ``stats.dispatches``."""
+    dispatches are folded into ``stats.dispatches``. ``deadline`` bounds
+    both stages: the warm start stops early, and the finish is cut
+    like any compacting solve."""
     from ..core.api import DispatchPolicy, dispatch
 
     policy = policy or DispatchPolicy()
     inputs = WARM_OT.canonicalize(inputs, device)
     y_b0, st1 = warm_duals(inputs, eps, sizes=sizes,
                            guaranteed=policy.guaranteed, chunk=policy.chunk,
-                           obs=obs, device=device, warm_iters=warm_iters)
+                           deadline=deadline, obs=obs, device=device,
+                           warm_iters=warm_iters)
     finish = _dc_replace(policy, solver="pushrelabel", fused=False)
     r, stats = dispatch(WARM_OT, inputs, eps, sizes=sizes, policy=finish,
-                        keep_state=keep_state, obs=obs, device=device,
-                        theta=theta, y_b0=y_b0)
+                        keep_state=keep_state, deadline=deadline, obs=obs,
+                        device=device, theta=theta, y_b0=y_b0)
     if stats is not None:
         stats.dispatches += int(st1.dispatches)
     return r, stats

@@ -698,3 +698,85 @@ def test_sinkhorn_solve_on_card_equals_cpu(dev, fused):
         np.testing.assert_allclose(a.cost, b.cost, rtol=1e-4)
         for x, y in zip(a.duals(), b.duals()):
             np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_scheduler_round_trip_on_card_launches_kernels(dev):
+    """AsyncOTScheduler on the card: every bucket builds its costs with
+    the cost_matrix kernel and proposes with slack_propose, every request
+    resolves at ladder level 0, and each bucket's integer state equals a
+    direct solve() of the same padded costs on the card and on the CPU."""
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.serve.scheduler import AsyncOTScheduler
+
+    rng = np.random.default_rng(19)
+    reqs = []
+    for i in range(6):
+        m, n = int(rng.integers(100, 300)), int(rng.integers(100, 300))
+        x = rng.uniform(size=(m, 2)).astype(np.float32)
+        y = rng.uniform(size=(n, 2)).astype(np.float32)
+        if i % 2:
+            reqs.append((x, y, rng.dirichlet(np.ones(m)).astype(np.float32),
+                         rng.dirichlet(np.ones(n)).astype(np.float32)))
+        else:
+            reqs.append((x, y, None, None))
+    policy = DispatchPolicy(mode="compact")
+    items = []
+    ops.reset_launches()
+    with AsyncOTScheduler(eps=0.1, linger_ms=20, want=("cost", "state"),
+                          device=dev, join_timeout_s=5,
+                          policy=policy) as s:
+        solve_bucket = s._solve_with_ladder
+
+        def recorded(item, dspan=None):
+            out = solve_bucket(item, dspan)
+            items.append((item, out[0]))
+            return out
+
+        s._solve_with_ladder = recorded
+        futs = [s.submit(x, y, nu, mu) for x, y, nu, mu in reqs]
+        assert s.flush(timeout=300)
+        sols = [f.result(timeout=60) for f in futs]
+        assert s.stats_dict()["degraded"] == 0
+    launched = dict(ops.launches)
+    assert launched["cost_matrix"] == len(items) >= 2   # one per bucket
+    assert launched["slack_propose"] > 0
+    for sol in sols:
+        assert (sol.stats.ladder_level, sol.stats.attempts) == (0, 1)
+        assert not sol.degraded
+    for item, batch in items:
+        spec = OT if item.has_mass else ASSIGNMENT
+        ins = {"c": item.c}
+        if item.has_mass:
+            ins.update(nu=item.nu, mu=item.mu)
+        for where in (dev, "cpu"):
+            direct = solve(spec, {k: v.to(where) for k, v in ins.items()},
+                           item.eps, policy, sizes=item.sizes,
+                           want=("state",), device=where)
+            for f in batch.state()._fields:
+                assert torch.equal(getattr(batch.state(), f).cpu(),
+                                   getattr(direct.state(), f).cpu()), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "l1"])
+@pytest.mark.parametrize("d", [2, 784])
+def test_cost_matrix_keeps_nan_like_plain(dev, metric, d):
+    """A NaN point poisons its row and column on the card as in the plain
+    version (the admission check looks for it); the finite costs equal
+    the plain version within the stated tolerance."""
+    rng = np.random.default_rng(d)
+    x = torch.as_tensor(rng.uniform(size=(2, 40, d)).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(size=(2, 36, d)).astype(np.float32),
+                        device=dev)
+    x[0, 3, 0] = float("nan")
+    y[1, 5, d - 1] = float("nan")
+    got = ops.cost_matrix_batched(x, y, metric)
+    ref = cost_matrix_ref(x, y, metric)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert bool(torch.isnan(got[0, 3]).all() and torch.isnan(got[1, :, 5])
+                .all())
+    rtol, atol = tolerance(metric, d)
+    ok = ~torch.isnan(ref)
+    torch.testing.assert_close(got[ok], ref[ok], rtol=rtol, atol=atol)

@@ -304,3 +304,108 @@ def test_port_imports_neither_jax_nor_reference():
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (f, mod)
+
+
+def test_build_kernels_compiles_each_source_once_under_threads(
+        monkeypatch, tmp_path):
+    """Two threads reach first use together: with ``nvcc`` and the loader
+    stubbed, every source is compiled exactly once, each build writes its
+    own temporary file, and both threads find every kernel loaded."""
+    import threading
+    import time
+
+    compiled, tmps = [], []
+
+    class FakeProc:
+        def __init__(self, argv, **kw):
+            out = Path(argv[argv.index("-o") + 1])
+            compiled.append(Path(argv[-1]).name)
+            tmps.append(out.name)
+            time.sleep(0.05)            # hold the build open for the race
+            out.write_bytes(b"")
+            self.returncode = 0
+
+        def communicate(self):
+            return "ptxas info: stub", None
+
+        def poll(self):
+            return 0
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(ops, "_libs", {})
+    monkeypatch.setattr(ops, "_workspace_fns", {})
+    monkeypatch.setattr(ops, "build_log", {})
+    monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(ops.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(ops.ctypes, "CDLL", lambda path: FakeLib())
+    go = threading.Barrier(2)
+    errors = []
+
+    def first_use():
+        try:
+            go.wait(timeout=10)
+            ops.build_kernels()
+            assert set(ops._libs) == set(ops._ENTRY)
+        except Exception as e:          # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not errors, errors
+    sources = sorted(src for src, _, _ in ops._ENTRY.values())
+    assert sorted(compiled) == sources          # each exactly once
+    assert len(set(tmps)) == len(tmps)
+    assert ops.build_kernels() == 0.0           # loaded: no second build
+    assert sorted(compiled) == sources
+
+
+def test_launch_counts_are_exact_under_threads(monkeypatch):
+    """More threads than cores and a short switch interval: a lost
+    read-modify-write of a count would show."""
+    import sys
+    import threading
+
+    monkeypatch.setattr(ops, "launches", dict.fromkeys(ops._ENTRY, 0))
+    monkeypatch.setattr(ops, "_libs", {n: (lambda *a: 0)
+                                       for n in ops._ENTRY})
+
+    def work():
+        for _ in range(1000):
+            ops._launch("cost_matrix")
+
+    threads = [threading.Thread(target=work) for _ in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert ops.launches["cost_matrix"] == 16000
+    ops.reset_launches()
+    assert set(ops.launches.values()) == {0}
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "l1"])
+def test_cost_matrix_plain_keeps_nan_like_reference(metric):
+    """The plain version (and so the kernel, held to it on the card)
+    poisons a NaN point's row like the reference's jnp cost; the serving
+    layers' admission check relies on it."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(9, 2)).astype(np.float32)
+    y = rng.uniform(size=(7, 2)).astype(np.float32)
+    x[4, 1] = np.nan
+    got = build_cost_matrix(x, y, metric, device="cpu").numpy()
+    ref = np.asarray(jax_build_cost_matrix(x, y, metric))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[4]).all() and not np.isnan(np.delete(got, 4, 0)).any()

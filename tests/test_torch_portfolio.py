@@ -23,6 +23,7 @@ is <= tol. Two implementations whose sums run in another order may see
 that crossing one iteration apart when the error lands within f32 noise
 of tol; ``_assert_phases`` allows exactly that and nothing else.
 """
+import importlib
 import json
 
 import numpy as np
@@ -45,7 +46,9 @@ from repro.portfolio import hybrid as jhybrid
 from repro.portfolio import sinkhorn_spec as jspec
 from repro_torch.core import api as tapi
 from repro_torch.core import device as tdevice
-from repro_torch.core import sinkhorn as tsink
+# the module: repro_torch.core re-exports the function under its name,
+# as repro.core does
+tsink = importlib.import_module("repro_torch.core.sinkhorn")
 from repro_torch.core.compaction import solve_compacting
 from repro_torch.core.feasibility import check_ot_invariants
 from repro_torch.core.problem import OT, fused_variant
