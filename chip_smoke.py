@@ -79,15 +79,31 @@ Phases, in order; any failure exits non-zero:
      ladder level 0 and every integer state equal to (a)'s; the memory
      peak ``torch.cuda.max_memory_allocated()`` of (a) + (b), whose
      recordings for (c) hold every bucket on the card, and of (d), which
-     records nothing (the service's own peak);
-  9. one JSON line with every kernel's numbers;
- 10. last line: ``{"ok": true, "device": {...}}``.
+     records nothing (the service's own peak); the scheduler's buckets
+     run under its default policy, mode "mesh" on a one-device mesh, and
+     every Solution must say so (``SolveStats.mode == "mesh"``,
+     ``devices == 1``);
+  9. multi-device dispatch (``core/distributed.py``, ``core/sharded.py``),
+     on logical meshes of the one card (D shards on separate streams),
+     plus ``make_batch_mesh()`` (every card, a power of two); (a) batch
+     placement: B = 4 Fig. 1 assignment instances (n = 10 000, eps 0.01)
+     and B = 4 OT instances (n = 4096, Dirichlet(1) masses, eps 0.05),
+     each on ``make_batch_mesh()``, D = 2 and D = 4 stepped, then D = 2
+     with ``fused=True``; every lane's integer state equal to
+     ``mode="compact"`` on the same inputs, field for field; (b) matrix
+     placement through ``solve(..., DispatchPolicy(mode="mesh",
+     placement="matrix"))`` on a logical (2, 2) grid: lane 0 of each of
+     (a)'s batches, its integer outputs equal to the compact solve's,
+     floats within the stated tolerance; ``slack_propose`` and, under
+     ``fused=True``, the fused kernels must launch on each counted run;
+ 10. one JSON line with every kernel's numbers;
+ 11. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
-each solve of phase 7 and phase 8's (a) and (b) together (the serve
-route) are driven with the launch counts set to 0 just before and read
-just after; the kernels line gives each kernel's launches on its route,
-and on the serve route as ``serve_launches``.
+each solve of phase 7, phase 8's (a) and (b) together (the serve route)
+and each run of phase 9 are driven with the launch counts set to 0 just
+before and read just after; the kernels line gives each kernel's
+launches on its route, and on the serve route as ``serve_launches``.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -151,6 +167,11 @@ SIZES = {
               "want": ("cost", "duals", "state"),
               "deadline": (2048, 0.01),
               "images": (1024, 2048), "image_reqs": 8, "image_eps": 0.1},
+    # phase 9, multi-device: B instances a batch, (n, eps) of each
+    # problem, the logical shard counts of batch placement and the
+    # logical (row, col) grid of matrix placement
+    "mesh": {"batch": 4, "assignment": (10_000, 0.01), "ot": (4096, 0.05),
+             "logical": (2, 4), "grid": (2, 2)},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -445,7 +466,12 @@ def main() -> int:
         return fail("the serving path")
     log(f"[8] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 9. kernels line ------------------------------------------------
+    # -- 9. multi-device dispatch, counted --------------------------------
+    if not phase_mesh(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("multi-device dispatch")
+    log(f"[9] done at {time.monotonic() - t_start:.0f} s")
+
+    # -- 10. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -466,7 +492,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[9] record written to {args.out}")
+    log(f"[10] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1766,7 +1792,7 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
 
     # (a)'s outcomes
     nan_at = cfg["nan_at"]
-    sols, levels, degraded = {}, [], 0
+    sols, levels, degraded, modes = {}, [], 0, set()
     for i, f in enumerate(futs):
         exc = f.exception(timeout=0)
         if i == nan_at:
@@ -1778,6 +1804,7 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
             continue
         sols[i] = sol = f.result(timeout=0)
         levels.append(sol.stats.ladder_level)
+        modes.add((sol.stats.mode, sol.stats.devices))
         degraded += int(sol.degraded)
         ok &= bool(np.isfinite(sol.cost) and sol.dual_feasible())
     # the NaN request's bucket went on without it
@@ -1790,6 +1817,7 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
         **_latency_row(lat, wall, len(sols)),
         "buckets": len(rec.calls), "stats": stats,
         "ladder_levels": sorted(set(levels)), "degraded": degraded,
+        "modes": sorted(modes),
         "nan_request_rejected": isinstance(futs[nan_at].exception(0),
                                            RequestRejected),
         "nan_bucket_kept": kept,
@@ -1799,7 +1827,9 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
                      "dispatches": dl_sol.stats.dispatches},
         "launches": sched_launches}
     log(f"[8] (a) scheduler {json.dumps(res_a, default=float)}")
-    ok &= (set(levels) == {0} and degraded == 0 and len(kept) == 1
+    # the scheduler's default policy is mesh mode, on a one-device mesh
+    ok &= (modes == {("mesh", 1)} and set(levels) == {0} and degraded == 0
+           and len(kept) == 1
            and kept[0] >= 1 and dl_sol.degraded
            and dl_sol.dual_feasible() and stats["rejected"] == 1
            and stats["degraded"] == 1 and stats["retries"] == 0)
@@ -1813,7 +1843,9 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
                                            for x, _ in images],
              "wall_s": wall_b, "instances_per_s": len(sols_b) / wall_b,
              "buckets": len(svc_rec.calls), "ladder_levels":
-             sorted(levels_b), "launches": svc_launches,
+             sorted(levels_b), "modes": sorted({s.stats.mode
+                                                for s in sols_b}),
+             "launches": svc_launches,
              "stats": svc.stats_dict()}
     log(f"[8] (b) service {json.dumps(res_b, default=float)}")
     ok &= ok_b
@@ -1887,6 +1919,152 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
     record["phases"]["serving"] = {"a": res_a, "b": res_b, "c": res_c,
                                    "d": res_d, **res_mem}
     return ok
+
+
+
+def _mesh_batch(torch, rng, dev, spec_name):
+    """Phase 9's B instances of one problem on the card: Fig. 1 points
+    (uniform in the unit square, euclidean) and, for OT, Dirichlet(1)
+    masses. Returns (inputs dict, eps)."""
+    from repro_torch.core.costs import build_cost_matrix
+
+    cfg = SIZES["mesh"]
+    b = cfg["batch"]
+    n, eps = cfg[spec_name]
+    x = np.stack([_points(rng, n) for _ in range(b)])
+    y = np.stack([_points(rng, n) for _ in range(b)])
+    inputs = {"c": build_cost_matrix(x, y, "euclidean", device=dev)}
+    if spec_name == "ot":
+        inputs["nu"] = torch.as_tensor(
+            rng.dirichlet(np.ones(n), size=b).astype(np.float32), device=dev)
+        inputs["mu"] = torch.as_tensor(
+            rng.dirichlet(np.ones(n), size=b).astype(np.float32), device=dev)
+    return inputs, eps
+
+
+def _mesh_run(torch, ops, rdev, dev, spec, inputs, eps, policy, keep_state):
+    """One counted ``solve`` (launch and sync counts from 0); returns
+    (result, stats, wall seconds, launches, syncs)."""
+    from repro_torch.core.api import solve
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    t0 = time.monotonic()
+    r, st = solve(spec, inputs, eps, policy, keep_state=keep_state,
+                  device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return r, st, wall, dict(ops.launches), dict(rdev.sync_counts)
+
+
+def phase_mesh(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """Multi-device dispatch on the card (see the module docstring, phase
+    9). Logical shards of one card run on separate streams: they show the
+    schedule, the bucket descent and the bit-identity, not a speed-up
+    across cards."""
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy
+    from repro_torch.launch.mesh import (largest_pow2_at_most,
+                                         make_batch_mesh, make_small_mesh)
+
+    cfg = SIZES["mesh"]
+    card = smi_line()               # beside every number of the phase
+    rng = np.random.default_rng([ctx["seed"], 9])
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[9] one card ({card}): only logical shards ran (D shards "
+            f"on separate streams of cuda:0)")
+    meshes = [("make_batch_mesh", make_batch_mesh())]
+    meshes += [(f"logical{d}", make_small_mesh((d,), ("data",),
+                                               devices=dev))
+               for d in cfg["logical"]]
+    grid = make_small_mesh(cfg["grid"], ("data", "model"), devices=dev)
+    ok = True
+    res = {"card": card, "cards": cards,
+           "batch_mesh_devices": largest_pow2_at_most(cards), "batch": [],
+           "matrix": []}
+    mesh_launches = {k: 0 for k in ops.launches}
+    for spec_name, spec in (("assignment", ASSIGNMENT), ("ot", OT)):
+        inputs, eps = _mesh_batch(torch, rng, dev, spec_name)
+        base, bst, wall, lc, sc = _mesh_run(
+            torch, ops, rdev, dev, spec, inputs, eps,
+            DispatchPolicy(mode="compact"), True)
+        row = {"spec": spec_name, "placement": "compact", "devices": 1,
+               "wall_s": wall, "chunk_syncs": sc["chunk"],
+               "round_syncs": sc["round"], "dispatches": bst.dispatches,
+               "slot_phases": bst.slot_phases,
+               "phases": base.phases.tolist(), "launches": lc}
+        log(f"[9] (a) {json.dumps(row, default=float)}")
+        res["batch"].append(row)
+        runs = [(name, mesh, False) for name, mesh in meshes]
+        runs.append(("logical2", meshes[1][1], True))
+        for name, mesh, fused in runs:
+            pol = DispatchPolicy(mode="mesh", mesh=mesh, placement="batch",
+                                 fused=fused)
+            r, st, wall, lc, sc = _mesh_run(torch, ops, rdev, dev, spec,
+                                            inputs, eps, pol, True)
+            diff = _state_diff(st.final_state, bst.final_state)
+            kernel = ("fused_assignment_phases" if spec_name == "assignment"
+                      else "fused_ot_phases") if fused else "slack_propose"
+            row = {"spec": spec_name, "mesh": name, "fused": fused,
+                   "devices": st.devices,
+                   "devices_per_dispatch": st.devices_per_dispatch,
+                   "collapsed_at": st.collapsed_at,
+                   "slot_phases": st.slot_phases,
+                   "dispatches": st.dispatches,
+                   "chunk_syncs": sc["chunk"], "round_syncs": sc["round"],
+                   "wall_s": wall, "state_differs": diff,
+                   "launches": lc, "card": card}
+            log(f"[9] (a) {json.dumps(row, default=float)}")
+            res["batch"].append(row)
+            for k, v in lc.items():
+                mesh_launches[k] += v
+            ok &= (not diff and lc[kernel] > 0
+                   and sc["chunk"] == st.dispatches
+                   and torch.equal(r.phases, base.phases))
+            del r, st
+        # (b) matrix placement: lane 0 on the logical grid
+        one = {k: v[:1] for k, v in inputs.items()}
+        pol = DispatchPolicy(mode="mesh", mesh=grid, placement="matrix")
+        keep = spec_name == "ot"
+        r, st, wall, lc, sc = _mesh_run(torch, ops, rdev, dev, spec, one,
+                                        eps, pol, keep)
+        if spec_name == "ot":
+            lane0 = type(bst.final_state)(*(a[:1]
+                                            for a in bst.final_state))
+            diff = _state_diff(r.state, lane0)
+            err = float((r.plan[0] - base.plan[0]).abs().max())
+            tol = 1e-6          # plan entries are masses of about 1/n
+        else:
+            diff = [f for f in ("matching", "phases", "rounds",
+                                "matched_before_completion", "y_b", "y_a")
+                    if not torch.equal(getattr(r, f)[:1],
+                                       getattr(base, f)[:1])]
+            err = float((r.y_b[0] - base.y_b[0]).abs().max())
+            tol = 0.0           # duals of equal integer duals, same scale
+        cost_err = abs(float(r.cost[0]) - float(base.cost[0]))
+        cost_tol = 1e-5 * abs(float(base.cost[0]))
+        row = {"spec": spec_name, "placement": "matrix",
+               "grid": list(cfg["grid"]), "devices": st.devices,
+               "phases": int(r.phases[0]), "rounds": int(r.rounds[0]),
+               "wall_s": wall, "round_syncs": sc["round"],
+               "state_differs": diff, "max_abs_err": err, "tol": tol,
+               "cost_abs_err": cost_err, "cost_tol": cost_tol,
+               "launches": lc, "card": card}
+        log(f"[9] (b) {json.dumps(row, default=float)}")
+        res["matrix"].append(row)
+        for k, v in lc.items():
+            mesh_launches[k] += v
+        ok &= (not diff and err <= tol and cost_err <= cost_tol
+               and lc["slack_propose"] > 0 and st.placement == "matrix"
+               and st.devices == int(np.prod(cfg["grid"])))
+        del r, st, base, bst, inputs, one
+        gc.collect()
+    launches["mesh"] = mesh_launches
+    res["launches"] = mesh_launches
+    record["phases"]["mesh"] = res
+    return ok
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,14 +2,12 @@
 assignment and OT, the problem specs, the batch drivers and the ``solve``
 front door. Every function works on a batch axis written out in front.
 
-The public surface is the reference's (``repro.core``), less what waits
-for multi-device dispatch (ROADMAP.md Queue 1 item 11): the
-``core/distributed.py`` names ``DistributedStats``, ``choose_placement``,
-``solve_assignment_distributed`` and ``solve_ot_distributed``, and the
-integer-input solvers ``solve_assignment_int`` and ``solve_ot_int``.
+The public surface is the reference's (``repro.core``), multi-device
+dispatch (``core/distributed.py``) included.
 """
-from .pushrelabel import solve_assignment, AssignmentResult
-from .transport import solve_ot, OTResult, northwest_corner
+from .pushrelabel import (solve_assignment, solve_assignment_int,
+                          AssignmentResult)
+from .transport import solve_ot, solve_ot_int, OTResult, northwest_corner
 from .problem import (
     ASSIGNMENT,
     OT,
@@ -38,6 +36,12 @@ from .compaction import (
     solve_assignment_batched_compacting,
     solve_ot_batched_compacting,
 )
+from .distributed import (
+    DistributedStats,
+    choose_placement,
+    solve_assignment_distributed,
+    solve_ot_distributed,
+)
 from .costs import build_cost_matrix
 from .sinkhorn import sinkhorn
 
@@ -46,12 +50,13 @@ __all__ = [
     "DispatchPolicy", "solve",
     "ArtifactNotRequested", "Solution", "SolutionBatch", "SolveStats",
     "SparsePlan", "SparsePlanBatch",
-    "solve_assignment", "AssignmentResult",
-    "solve_ot", "OTResult", "northwest_corner",
+    "solve_assignment", "solve_assignment_int", "AssignmentResult",
+    "solve_ot", "solve_ot_int", "OTResult", "northwest_corner",
     "solve_assignment_batched", "solve_assignment_ragged",
     "solve_ot_batched", "solve_ot_ragged", "BatchedAssignmentResult",
     "CompactionStats", "solve_assignment_batched_compacting",
     "solve_ot_batched_compacting",
-    # core/distributed.py and solve_assignment_int / solve_ot_int: item 11
+    "DistributedStats", "choose_placement",
+    "solve_assignment_distributed", "solve_ot_distributed",
     "build_cost_matrix", "sinkhorn",
 ]

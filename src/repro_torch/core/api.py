@@ -7,10 +7,18 @@ the :class:`DispatchPolicy` selects:
   * ``lockstep``  every lane of a bucket runs until it terminates, in one
                   chunk;
   * ``compact``   the convergence-compacting chunked-phase driver
-                  (``core/compaction.py``), per-instance eps supported.
+                  (``core/compaction.py``), per-instance eps supported;
+  * ``mesh``      the mesh-distributed compacting driver
+                  (``core/distributed.py``) over the devices of a
+                  ``launch.mesh.Mesh``, with ``placement`` choosing
+                  batch-axis sharding or per-instance (row, col) block
+                  sharding ("auto" applies ``choose_placement``).
 
-Results are identical across the two, lane for lane. It runs on the CUDA
-device unless ``device="cpu"`` is passed. On the card the stepped route
+Results are identical across lockstep, compact and mesh/batch, lane for
+lane; mesh/matrix has the same integer state, and floats equal up to
+reassociation. It runs on the CUDA device unless ``device="cpu"`` is
+passed; under mesh mode the mesh decides the devices (a ``device=`` that
+is not the mesh's first device raises). On the card the stepped route
 (the default) launches the ``slack_propose`` kernel in every propose
 round; ``DispatchPolicy(fused=True)`` swaps the spec for its fused variant
 (``FUSED_ASSIGNMENT`` / ``FUSED_OT``), which runs a whole k-phase chunk in
@@ -33,13 +41,10 @@ dict form, per-instance dicts for the ragged form.
 before any phase runs; ``deadline=`` cuts the compacting driver's chunk
 loop at a wall-clock budget and flags the cut lanes
 ``Solution.degraded``.
-
-Multi-device dispatch (``mode="mesh"``, ``mesh=``) is not ported yet and
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +52,7 @@ import numpy as np
 from ..obs.metrics import now as _now
 from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
 from .device import resolve_device
+from .distributed import same_device, solve_mesh
 from .problem import (  # noqa: F401  (re-exported with solve)
     ASSIGNMENT,
     FUSED_ASSIGNMENT,
@@ -66,10 +72,12 @@ class DispatchPolicy:
     """How a batch is dispatched. The fields are the reference's.
 
     Args:
-      mode: "auto" (compact), "lockstep" or "compact"; "mesh" is not
-        ported yet.
-      mesh, placement: multi-device dispatch, not ported yet (``mesh``
-        must stay None).
+      mode: "auto" (mesh when ``mesh`` is set, else compact), "lockstep",
+        "compact" or "mesh".
+      mesh: a ``launch.mesh.Mesh`` (``make_batch_mesh()``, or
+        ``make_small_mesh(..., devices=...)`` for logical shards); None
+        under mode="mesh" means ``make_batch_mesh()``.
+      placement: mesh-mode placement: "auto", "batch" or "matrix".
       chunk: k, phases per chunk of the compacting driver.
       buckets: shape-bucket boundaries for ragged input (None -> the
         ``core/batched.py`` defaults).
@@ -77,7 +85,10 @@ class DispatchPolicy:
       want: artifacts of the typed Solution surface; None keeps the
         legacy return surface. ``solve(..., want=...)`` overrides it.
       fused: run each chunk as one launch of the fused kernel
-        (``FUSED_ASSIGNMENT`` / ``FUSED_OT``); same results. With
+        (``FUSED_ASSIGNMENT`` / ``FUSED_OT``); same results. Under mesh
+        batch placement each shard's chunk is one fused launch; matrix
+        placement runs the stepped kernels (the fused kernel is a
+        whole-instance program). With
         ``solver="sinkhorn"``, every f-update launches the
         ``sinkhorn_row_update`` kernel (``SINKHORN_KERNEL``).
       solver: the algorithm for OT-family batches: "pushrelabel" (the
@@ -114,14 +125,37 @@ class DispatchPolicy:
             raise ValueError(f"unknown solver {self.solver!r}; "
                              f"expected one of {_SOLVERS}")
         if self.mode == "lockstep" and self.mesh is not None:
-            raise ValueError("mode='lockstep' cannot dispatch over a mesh")
-        if self.mode == "mesh" or self.mesh is not None:
-            raise NotImplementedError(
-                "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
-                "11, multi-device)")
+            raise ValueError("mode='lockstep' cannot dispatch over a mesh "
+                             "- use mode='compact' or mode='mesh' (the "
+                             "distributed driver is the compacting driver)")
+        if self.placement not in ("auto", "batch", "matrix"):
+            raise ValueError(f"unknown placement {self.placement!r}; "
+                             "expected 'auto', 'batch' or 'matrix'")
 
     def resolved_mode(self) -> str:
-        return "compact" if self.mode == "auto" else self.mode
+        if self.mode != "auto":
+            return self.mode
+        return "mesh" if self.mesh is not None else "compact"
+
+    def on_mesh(self, device=None) -> Tuple["DispatchPolicy", Any]:
+        """``(policy, device)`` with the mesh resolved: under mesh mode a
+        None mesh becomes ``make_batch_mesh()`` and the device is the
+        mesh's first (a ``device`` naming another raises); otherwise the
+        policy as it is and ``resolve_device(device)``."""
+        if self.resolved_mode() != "mesh":
+            return self, resolve_device(device)
+        pol = self
+        if pol.mesh is None:
+            from ..launch.mesh import make_batch_mesh
+
+            pol = replace(pol, mesh=make_batch_mesh())
+        dev0 = pol.mesh.flat_devices[0]
+        if device is not None and not same_device(device, dev0):
+            raise ValueError(
+                f"device={device!r} disagrees with the mesh, whose first "
+                f"device is {dev0}; the mesh decides where a mesh "
+                "dispatch runs")
+        return pol, dev0
 
     @classmethod
     def from_legacy(cls, compact: bool, mesh=None, *, chunk=None,
@@ -131,9 +165,7 @@ class DispatchPolicy:
                     solver: str = "pushrelabel") -> "DispatchPolicy":
         """Map the legacy ``compact=`` / ``mesh=`` keywords
         (``solve_*_ragged``, ``OTService``) onto a policy: the one place
-        that mapping and its mesh-requires-compact rule live. A ``mesh``
-        raises ``NotImplementedError`` (multi-device dispatch is ROADMAP.md
-        Queue 1 item 11)."""
+        that mapping and its mesh-requires-compact rule live."""
         if mesh is not None and not compact:
             raise ValueError("mesh dispatch requires compact=True (the "
                              "distributed driver is the compacting "
@@ -191,8 +223,7 @@ def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
     chosen solver, the cost model's prediction and the dispatch wall time
     are set on the stats (``solver`` / ``predicted_s`` / ``solve_s``) and
     sent to ``obs`` as a ``"solver-choice"`` event."""
-    policy = policy or DispatchPolicy()
-    dev = resolve_device(device)
+    policy, dev = (policy or DispatchPolicy()).on_mesh(device)
     inputs = spec.canonicalize(inputs, dev)
     solver, spec, predicted = _resolve_solver(spec, policy, inputs, eps)
     t0 = _now()
@@ -231,7 +262,8 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
     if mode == "lockstep":
         if deadline is not None:
             raise ValueError(
-                "deadline requires a chunked driver (mode='compact'); the "
+                "deadline requires a chunked driver (mode='compact' or "
+                "'mesh'); the "
                 "lockstep path runs one unbounded chunk that cannot be "
                 "cut mid-flight")
         eps_u = np.unique(np.asarray(eps, np.float64))
@@ -248,6 +280,12 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
             return r, st
         return r, None
     k = DEFAULT_CHUNK if policy.chunk is None else int(policy.chunk)
+    if mode == "mesh":
+        return solve_mesh(
+            spec, inputs, eps, policy.mesh, sizes=sizes, k=k,
+            guaranteed=policy.guaranteed, placement=policy.placement,
+            keep_state=keep_state, deadline=deadline, obs=obs,
+            device=device, **prep_kw)
     return solve_compacting(
         spec, inputs, eps, sizes=sizes, k=k, guaranteed=policy.guaranteed,
         keep_state=keep_state, deadline=deadline, obs=obs, device=device,
@@ -311,8 +349,7 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
     still primal-feasible with eps-feasible duals, so
     ``dual_feasible()`` / ``additive_gap()`` re-validate each answer.
     """
-    policy = policy or DispatchPolicy()
-    dev = resolve_device(device)
+    policy, dev = (policy or DispatchPolicy()).on_mesh(device)
     if want is None:
         want = policy.want
     if want is not None:

@@ -133,9 +133,10 @@ def solve_ot_ragged(instances, eps, *,
     batched dispatch on ``device`` (None: CUDA). Returns per-instance
     dicts in input order. ``compact=True`` (default) runs each bucket on
     the compacting driver (``eps`` may then be per instance);
-    ``compact=False`` runs lockstep, sub-grouped by eps. ``mesh`` is not
-    ported yet (ROADMAP.md Queue 1 item 11). A thin wrapper over
-    ``core/api.solve(OT, ...)``."""
+    ``compact=False`` runs lockstep, sub-grouped by eps. ``mesh`` (a
+    ``launch.mesh.Mesh``, with ``compact=True``) runs every bucket on the
+    mesh-distributed driver, whose first device then replaces
+    ``device``. A thin wrapper over ``core/api.solve(OT, ...)``."""
     from .api import solve
 
     return solve(OT, instances, eps,

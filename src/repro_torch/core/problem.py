@@ -22,8 +22,10 @@ contract and bound to a problem by a spec object:
 Unlike the reference, the per-instance functions take the batch axis
 directly (the reference ``vmap``s them). ``FUSED_ASSIGNMENT`` /
 ``FUSED_OT`` are the same specs with ``run_phases`` on the fused kernels
-(``fused_variant`` maps one to the other); the sharded hooks of the
-reference specs wait for a later slice of the port.
+(``fused_variant`` maps one to the other). ``matrix_instance`` /
+``matrix_stack`` are the matrix-placement hooks of mesh dispatch
+(``core/distributed.py``): one instance padded to mesh-divisible dims and
+solved block-sharded (``core/sharded.py``), then the batch reassembled.
 """
 from __future__ import annotations
 
@@ -99,9 +101,7 @@ class PreparedBatch(NamedTuple):
 class ProblemSpec(Protocol):
     """The stepped-core contract (see the module docstring); every
     function takes the batch axis in front. Implementations are
-    stateless. The reference's matrix-placement hooks (``matrix_instance``
-    / ``matrix_stack``) wait for multi-device dispatch (ROADMAP.md Queue
-    1 item 11)."""
+    stateless."""
     name: str
     # ``ops`` entries the epilogue consumes verbatim (merged into ctx by
     # the drivers instead of passing through the prologue)
@@ -135,6 +135,19 @@ class ProblemSpec(Protocol):
                              shape: Tuple[int, int]): ...
     def artifact_state(self, r, state): ...
     def legacy_instance_dict(self, sol) -> Dict[str, Any]: ...
+    def matrix_instance(self, inputs, i: int, mi: int, ni: int, mp: int,
+                        np_: int, eps_i: float, mesh2, row_axis: str,
+                        col_axis: str, **kw): ...
+    def matrix_stack(self, rows, m_valid, n_valid, m: int, n: int): ...
+
+
+def _padded_block(a: torch.Tensor, shape, valid, device) -> torch.Tensor:
+    """``a``'s leading ``valid`` block, zero-padded to ``shape``, on
+    ``device``."""
+    out = torch.zeros(tuple(shape), dtype=a.dtype, device=device)
+    out[tuple(slice(0, v) for v in valid)] = a[
+        tuple(slice(0, v) for v in valid)].to(device)
+    return out
 
 
 def _sizes_arrays(sizes, b, m, n):
@@ -369,6 +382,42 @@ class AssignmentSpec:
                 "phases": sol.phases, "rounds": sol.rounds,
                 "y_b": y_b, "y_a": y_a}
 
+    # -- matrix placement (row/col blocks of one large instance) -------
+
+    def matrix_instance(self, inputs, i, mi, ni, mp, np_, eps_i, mesh2,
+                        row_axis, col_axis):
+        """Instance ``i`` padded to the mesh-divisible (mp, np_) and
+        solved block-sharded; the pad cost and masked completion make the
+        padded solve equal the unpadded one."""
+        from .sharded import block_device, solve_assignment_sharded
+
+        home = block_device(mesh2, row_axis, col_axis, 0, 0)
+        ci = _padded_block(inputs["c"][i], (mp, np_), (mi, ni), home)
+        return solve_assignment_sharded(
+            ci, eps_i, mesh2, row_axis=row_axis, col_axis=col_axis,
+            m_valid=mi, n_valid=ni)
+
+    def matrix_stack(self, rows, m_valid, n_valid, m: int, n: int):
+        """The per-instance results as one (B, m, n) batch result on the
+        first instance's device."""
+        dev = rows[0].cost.device
+        b = len(rows)
+        matching = torch.full((b, m), -1, dtype=torch.int32, device=dev)
+        y_b = torch.zeros((b, m), dtype=torch.float32, device=dev)
+        y_a = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        for i, r in enumerate(rows):
+            mi, ni = int(m_valid[i]), int(n_valid[i])
+            matching[i, :mi] = r.matching[0, :mi].to(dev)
+            y_b[i, :mi] = r.y_b[0, :mi].to(dev)
+            y_a[i, :ni] = r.y_a[0, :ni].to(dev)
+
+        def cat(f):
+            return torch.cat([getattr(r, f).to(dev) for r in rows])
+        return BatchedAssignmentResult(
+            matching=matching, cost=cat("cost"), y_b=y_b, y_a=y_a,
+            phases=cat("phases"), rounds=cat("rounds"),
+            matched_before_completion=cat("matched_before_completion"))
+
 
 # --------------------------------------------------------------------------
 # General OT (paper Algorithm 2)
@@ -518,6 +567,70 @@ class OTSpec:
     def legacy_instance_dict(self, sol):
         return {"plan": sol.plan(), "cost": sol.cost, "phases": sol.phases,
                 "rounds": sol.rounds, "theta": sol.theta}
+
+    # -- matrix placement ------------------------------------------------
+
+    def matrix_instance(self, inputs, i, mi, ni, mp, np_, eps_i, mesh2,
+                        row_axis, col_axis, theta=None):
+        """Instance ``i`` padded to (mp, np_) with zero mass and cost
+        (zero supply never proposes, zero demand grants nothing) and
+        solved block-sharded. Theta comes from the TRUE size (host
+        float64 -> f32, as ``_theta_array``), so the trajectory equals
+        the unpadded solve's."""
+        from .sharded import block_device, solve_ot_sharded
+
+        home = block_device(mesh2, row_axis, col_axis, 0, 0)
+        ci = _padded_block(inputs["c"][i], (mp, np_), (mi, ni), home)
+        nui = _padded_block(inputs["nu"][i], (mp,), (mi,), home)
+        mui = _padded_block(inputs["mu"][i], (np_,), (ni,), home)
+        if theta is None:
+            th_i = float(np.float32(4.0 * max(mi, ni) / np.float64(eps_i)))
+        else:
+            b = int(inputs["c"].shape[0])
+            th_i = float(np.broadcast_to(np.asarray(theta, np.float32),
+                                         (b,))[i])
+        return solve_ot_sharded(ci, nui, mui, eps_i, mesh2,
+                                row_axis=row_axis, col_axis=col_axis,
+                                theta=th_i)
+
+    def matrix_stack(self, rows, m_valid, n_valid, m: int, n: int):
+        """The per-instance results (and their integer states) as one
+        (B, m, n) batch result on the first instance's device."""
+        dev = rows[0].cost.device
+        b = len(rows)
+
+        def zi(*s):
+            return torch.zeros(s, dtype=torch.int32, device=dev)
+
+        def zf(*s):
+            return torch.zeros(s, dtype=torch.float32, device=dev)
+        plan, y_b, y_a = zf(b, m, n), zf(b, m), zf(b, n)
+        s_int, d_int = zi(b, m), zi(b, n)
+        st = {"y_b": zi(b, m), "ya_hi": zi(b, n), "free_b": zi(b, m),
+              "free_a": zi(b, n), "f_hi": zi(b, m, n), "f_lo": zi(b, m, n)}
+        rows_of = {"y_b": "m", "ya_hi": "n", "free_b": "m", "free_a": "n"}
+        for i, r in enumerate(rows):
+            mi, ni = int(m_valid[i]), int(n_valid[i])
+            plan[i, :mi, :ni] = r.plan[0, :mi, :ni].to(dev)
+            y_b[i, :mi] = r.y_b[0, :mi].to(dev)
+            y_a[i, :ni] = r.y_a[0, :ni].to(dev)
+            s_int[i, :mi] = r.s_int[0, :mi].to(dev)
+            d_int[i, :ni] = r.d_int[0, :ni].to(dev)
+            for f, side in rows_of.items():
+                k = mi if side == "m" else ni
+                st[f][i, :k] = getattr(r.state, f)[0, :k].to(dev)
+            for f in ("f_hi", "f_lo"):
+                st[f][i, :mi, :ni] = getattr(r.state, f)[0, :mi, :ni].to(dev)
+
+        def cat(get):
+            return torch.cat([get(r).to(dev) for r in rows])
+        state = OTState(**st, phases=cat(lambda r: r.state.phases),
+                        rounds=cat(lambda r: r.state.rounds))
+        return OTResult(
+            plan=plan, cost=cat(lambda r: r.cost), y_b=y_b, y_a=y_a,
+            phases=cat(lambda r: r.phases), rounds=cat(lambda r: r.rounds),
+            state=state, theta=cat(lambda r: r.theta), s_int=s_int,
+            d_int=d_int)
 
 
 # --------------------------------------------------------------------------

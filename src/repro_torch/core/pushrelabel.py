@@ -64,6 +64,16 @@ def _max_phases(eps: float, m: int) -> int:
     return int(m * (1.0 + 2.0 * eps) / eps) + 4
 
 
+def round_costs(c: torch.Tensor, eps) -> torch.Tensor:
+    """``floor(c / eps)`` on costs pre-scaled to [0, 1], as int32. ``eps``
+    goes in as an f32 tensor of ``c``'s rank, so the quotient is one
+    correctly rounded f32 division (a Python scalar divisor may be turned
+    into a multiplication by its reciprocal)."""
+    eps_t = torch.full((1,) * c.dim(), float(eps), dtype=torch.float32,
+                       device=c.device)
+    return torch.floor(c / eps_t).to(torch.int32)
+
+
 def init_assignment_state(b: int, m: int, n: int,
                           device=None) -> PushRelabelState:
     """Paper initialization: all free, y(b) = eps (1 unit), y(a) = 0."""
@@ -148,6 +158,36 @@ def run_assignment_phases(
         if not ran:
             break
     return state
+
+
+def solve_assignment_int(c_int: torch.Tensor, eps: float, propose_fn=None,
+                         m_valid=None, threshold=None) -> PushRelabelState:
+    """Run phases on one (m, n) integer cost matrix until |B'| <= eps * m.
+    No completion. Returns the state with a leading batch axis of 1.
+    ``c_int`` must be contiguous for the kernel; with a ``propose_fn``
+    of its own (the block schedule of ``core/sharded.py``) only its
+    shape and device are read.
+
+    ``m_valid`` restricts B' and the termination count to the first
+    ``m_valid`` rows (an instance padded to a bucket; padded columns get
+    a cost no dual sum reaches). ``threshold`` must accompany it: the
+    caller computes ``int(eps * m_valid)`` on the host in float64, as the
+    default below does for the full m."""
+    m, n = c_int.shape
+    dev = c_int.device
+    if m_valid is None:
+        threshold = int(eps * m)
+    elif threshold is None:
+        raise ValueError("m_valid requires a host-computed threshold")
+    cap = _max_phases(eps, m)
+
+    def vec(v):
+        return torch.tensor([int(v)], dtype=torch.int32, device=dev)
+    return run_assignment_phases(
+        c_int[None], init_assignment_state(1, m, n, dev),
+        vec(threshold), vec(cap), cap + 1,
+        m_valid=None if m_valid is None else vec(m_valid),
+        propose_fn=propose_fn)
 
 
 def assignment_converged(state: PushRelabelState, threshold, phase_cap,

@@ -45,12 +45,15 @@ class ArtifactNotRequested(ValueError):
 @dataclass(frozen=True)
 class SolveStats:
     """Per-dispatch accounting with explicit defaults on every path."""
-    mode: str                      # "lockstep" | "compact"
+    mode: str                      # "lockstep" | "compact" | "mesh"
     batch: int                     # real instances in the dispatch
     bucket: Optional[Tuple[int, int]] = None   # padded dispatch shape
     dispatches: int = 1
+    devices: int = 1
+    placement: str = "batch"
     chunk: Optional[int] = None
     occupancy: Tuple[Tuple[int, int], ...] = ()
+    collapsed_at: Optional[int] = None
     # fault-tolerance accounting (the serving layers fill these in)
     deadline_hit: bool = False     # chunk loop cut by a wall-clock budget
     attempts: int = 1              # dispatch attempts incl. ladder retries
@@ -67,16 +70,20 @@ class SolveStats:
                     bucket: Optional[Tuple[int, int]] = None,
                     solver: str = "pushrelabel",
                     predicted_s: Optional[float] = None) -> "SolveStats":
-        """Fold a driver stats object (CompactionStats, or None for the
-        plain lockstep path) into the uniform surface."""
+        """Fold a driver stats object (CompactionStats,
+        DistributedStats, or None for the plain lockstep path) into the
+        uniform surface."""
         if st is None:
             return cls(mode=mode, batch=batch, bucket=bucket, solver=solver,
                        predicted_s=predicted_s)
         return cls(
             mode=mode, batch=batch, bucket=bucket,
             dispatches=int(st.dispatches) or 1,
+            devices=int(getattr(st, "devices", 1)),
+            placement=str(getattr(st, "placement", "batch")),
             chunk=int(st.chunk) if st.chunk else None,
             occupancy=tuple(tuple(o) for o in st.occupancy),
+            collapsed_at=getattr(st, "collapsed_at", None),
             deadline_hit=bool(st.deadline_hit),
             solver=solver, predicted_s=predicted_s, actual_s=st.solve_s,
         )
@@ -84,8 +91,10 @@ class SolveStats:
     def as_dict(self) -> Dict[str, Any]:
         return {
             "mode": self.mode, "batch": self.batch, "bucket": self.bucket,
-            "dispatches": self.dispatches, "chunk": self.chunk,
+            "dispatches": self.dispatches, "devices": self.devices,
+            "placement": self.placement, "chunk": self.chunk,
             "occupancy": [list(o) for o in self.occupancy],
+            "collapsed_at": self.collapsed_at,
             "deadline_hit": self.deadline_hit, "attempts": self.attempts,
             "ladder_level": self.ladder_level,
             "quarantined": self.quarantined,

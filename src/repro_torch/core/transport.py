@@ -65,16 +65,18 @@ def _cumsum32(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.cumsum(dim).to(torch.int32)
 
 
-def _grant_round(c_int, y_b, ya_hi, rem_b, cap_a, salt):
+def _grant_round(c_int, y_b, ya_hi, rem_b, cap_a, salt, propose=None):
     """One propose/accept round on every lane. Every row with free supply
     left proposes all of it to one hash-random admissible column with
     capacity left; columns grant FIFO by row order through a segmented
     exclusive prefix sum. Returns ``(tgt (B, nb) int64, grant (B, nb)
     int32, any_prop (B,) bool)``; ``tgt`` is ``na`` where a row did not
-    propose."""
+    propose. ``propose`` replaces the propose step (the signature of
+    ``ops.slack_propose_batched``; ``core/sharded.py`` passes its block
+    schedule)."""
     b, nb, na = c_int.shape
-    col, _ = ops.slack_propose_batched(c_int, y_b, ya_hi, cap_a > 0, salt,
-                                       active_b=rem_b > 0)
+    propose = ops.slack_propose_batched if propose is None else propose
+    col, _ = propose(c_int, y_b, ya_hi, cap_a > 0, salt, active_b=rem_b > 0)
     can = col >= 0
     amt = torch.where(can, rem_b, 0)
     excl = _cumsum32(amt, 1) - amt
@@ -190,6 +192,27 @@ def ot_termination_threshold(nu, theta, eps: float) -> int:
     some (eps, total) pairs, e.g. eps = 0.1, total = 10."""
     s_int = np.floor(np.asarray(nu, np.float32) * np.float32(theta))
     return int(float(eps) * int(s_int.sum(dtype=np.float64)))
+
+
+def solve_ot_int(c_int, s_int, d_int, eps: float, max_phases: int,
+                 max_rounds: int, threshold=None) -> OTState:
+    """Run phases on one (nb, na) integer instance until the free supply
+    is <= ``threshold``. Returns the state with a leading batch axis of
+    1. ``threshold`` should be the host's ``ot_termination_threshold``;
+    None falls back to the device f32 product ``f32(eps) * f32(total)``,
+    as the reference does, which rounds differently for some (eps,
+    total) pairs."""
+    dev = c_int.device
+    if threshold is None:
+        total = s_int.sum(dtype=torch.int32).to(torch.float32)
+        thr = (torch.tensor(eps, dtype=torch.float32, device=dev)
+               * total).to(torch.int32).reshape(1)
+    else:
+        thr = torch.tensor([int(threshold)], dtype=torch.int32, device=dev)
+    return run_ot_phases(
+        c_int[None].contiguous(), init_ot_state(s_int[None], d_int[None]),
+        thr, torch.tensor([int(max_phases)], dtype=torch.int32, device=dev),
+        int(max_phases) + 1, int(max_rounds))
 
 
 def _running(state: OTState, threshold, phase_cap):

@@ -2,8 +2,13 @@
 
 Each wrapper takes tensors on one device. On a CPU tensor it runs the
 kernel's plain PyTorch version (in the kernel's own module). On a CUDA
-tensor it launches the kernel on ``torch.cuda.current_stream()`` or
-raises: there is no fallback from the card to the plain version.
+tensor it launches the kernel on that tensor's device, on its current
+stream there, or raises: there is no fallback from the card to the plain
+version. Each wrapper makes the tensor's device current around the
+launch (``torch.cuda.device``), since the launchers in ``csrc/`` size
+their grids for ``cudaGetDevice``'s device and launch there: a worker
+thread whose current device is another card still launches on the
+tensor's.
 
 The kernels are built at first use from ``csrc/*.cu`` with ``nvcc`` into
 ``build/repro_torch/`` at the root of the checkout (one ``nvcc`` process
@@ -250,10 +255,11 @@ def slack_propose_batched(c_int, y_b, y_a, avail_a, salt, *, active_b=None):
     key = torch.empty((b, m), dtype=torch.int64, device=dev)
     vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0
                                  for t in (c_int, y_a, avail_a)))
-    _launch("slack_propose", c_int.data_ptr(), y_b.data_ptr(),
-            y_a.data_ptr(), avail_a.data_ptr(), active_b.data_ptr(),
-            salt.data_ptr(), col.data_ptr(), key.data_ptr(), b, m, n, vec,
-            _stream(dev))
+    with torch.cuda.device(dev):
+        _launch("slack_propose", c_int.data_ptr(), y_b.data_ptr(),
+                y_a.data_ptr(), avail_a.data_ptr(), active_b.data_ptr(),
+                salt.data_ptr(), col.data_ptr(), key.data_ptr(), b, m, n,
+                vec, _stream(dev))
     return col, key
 
 
@@ -291,8 +297,9 @@ def cost_matrix_batched(x, y, metric: str = "sqeuclidean"):
     out = torch.empty((b, m, n), dtype=torch.float32, device=dev)
     aligned = int(d % 4 == 0 and x.data_ptr() % 16 == 0
                   and y.data_ptr() % 16 == 0)
-    _launch("cost_matrix", x.data_ptr(), y.data_ptr(), out.data_ptr(), b, m,
-            n, d, _METRIC_ID[metric], aligned, _stream(dev))
+    with torch.cuda.device(dev):
+        _launch("cost_matrix", x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                b, m, n, d, _METRIC_ID[metric], aligned, _stream(dev))
     return out
 
 
@@ -326,13 +333,14 @@ def fused_run_assignment_phases(c_int, state, threshold, phase_cap, k: int,
                  ("m_valid", m_valid)):
         _check(f, t, torch.int32, (b,), dev)
     out = [torch.empty_like(t) for t in state]
-    ws = _workspace("fused_assignment_phases", b, m, n, dev)
     vec = int(n % 4 == 0 and c_int.data_ptr() % 16 == 0)
-    _launch("fused_assignment_phases", c_int.data_ptr(),
-            *(t.data_ptr() for t in state), threshold.data_ptr(),
-            phase_cap.data_ptr(), m_valid.data_ptr(),
-            *(t.data_ptr() for t in out), ws.data_ptr(), b, m, n, int(k),
-            vec, _stream(dev))
+    with torch.cuda.device(dev):
+        ws = _workspace("fused_assignment_phases", b, m, n, dev)
+        _launch("fused_assignment_phases", c_int.data_ptr(),
+                *(t.data_ptr() for t in state), threshold.data_ptr(),
+                phase_cap.data_ptr(), m_valid.data_ptr(),
+                *(t.data_ptr() for t in out), ws.data_ptr(), b, m, n,
+                int(k), vec, _stream(dev))
     return type(state)(*out)
 
 
@@ -358,13 +366,14 @@ def fused_run_ot_phases(c_int, state, threshold, phase_cap, k: int,
     for f, t in (("threshold", threshold), ("phase_cap", phase_cap)):
         _check(f, t, torch.int32, (b,), dev)
     out = [torch.empty_like(t) for t in state]
-    ws = _workspace("fused_ot_phases", b, nb, na, dev)
     vec = int(na % 4 == 0 and c_int.data_ptr() % 16 == 0)
-    _launch("fused_ot_phases", c_int.data_ptr(),
-            *(t.data_ptr() for t in state), threshold.data_ptr(),
-            phase_cap.data_ptr(), *(t.data_ptr() for t in out),
-            ws.data_ptr(), b, nb, na, int(k), int(max_rounds), vec,
-            _stream(dev))
+    with torch.cuda.device(dev):
+        ws = _workspace("fused_ot_phases", b, nb, na, dev)
+        _launch("fused_ot_phases", c_int.data_ptr(),
+                *(t.data_ptr() for t in state), threshold.data_ptr(),
+                phase_cap.data_ptr(), *(t.data_ptr() for t in out),
+                ws.data_ptr(), b, nb, na, int(k), int(max_rounds), vec,
+                _stream(dev))
     return type(state)(*out)
 
 
@@ -395,9 +404,10 @@ def sinkhorn_row_update(c, g, log_nu, reg, *, active_b=None, f=None):
     out = torch.empty((b, m), dtype=torch.float32, device=dev)
     vec = int(n % 4 == 0 and c.data_ptr() % 16 == 0
               and g.data_ptr() % 16 == 0)
-    _launch("sinkhorn_row_update", c.data_ptr(), g.data_ptr(),
-            log_nu.data_ptr(), reg.data_ptr(),
-            0 if active_b is None else active_b.data_ptr(),
-            0 if f is None else f.data_ptr(), out.data_ptr(), b, m, n, vec,
-            _stream(dev))
+    with torch.cuda.device(dev):
+        _launch("sinkhorn_row_update", c.data_ptr(), g.data_ptr(),
+                log_nu.data_ptr(), reg.data_ptr(),
+                0 if active_b is None else active_b.data_ptr(),
+                0 if f is None else f.data_ptr(), out.data_ptr(), b, m, n,
+                vec, _stream(dev))
     return out

@@ -117,6 +117,13 @@ class _WarmOTSpec(OTSpec):
             keep_state=keep_state, device=device, theta=theta, y_b0=y_b0)
         return r, (stats.final_state if keep_state else None)
 
+    def matrix_instance(self, inputs, i, mi, ni, mp, np_, eps_i, mesh2,
+                        row_axis, col_axis, **kw):
+        # OTSpec's hook would solve from the cold start and drop y_b0
+        raise NotImplementedError(
+            "the warm-started finish supports batch placement only "
+            "(dispatch_hybrid asks for it)")
+
 
 WARM_OT = _WarmOTSpec()
 
@@ -152,7 +159,8 @@ def dispatch_hybrid(inputs, eps, *, sizes=None, policy=None,
                     warm_iters: int = _WARM_ITERS):
     """Solve one pre-batched OT bucket hybrid-style: ``warm_duals``, then
     the push-relabel finish (``WARM_OT``) dispatched under ``policy``'s
-    mode and chunk with the warm ``y_b0``, on the stepped route. Returns
+    mode and chunk with the warm ``y_b0``, on the stepped route (under
+    a mesh, with batch placement). Returns
     ``(OTResult, stats)`` with the finish driver's stats; the stage-1
     dispatches are folded into ``stats.dispatches``. ``deadline`` bounds
     both stages: the warm start stops early, and the finish is cut
@@ -165,7 +173,9 @@ def dispatch_hybrid(inputs, eps, *, sizes=None, policy=None,
                            guaranteed=policy.guaranteed, chunk=policy.chunk,
                            deadline=deadline, obs=obs, device=device,
                            warm_iters=warm_iters)
-    finish = _dc_replace(policy, solver="pushrelabel", fused=False)
+    # the warm start is per lane, so a mesh finish splits the batch
+    finish = _dc_replace(policy, solver="pushrelabel", fused=False,
+                         placement="batch")
     r, stats = dispatch(WARM_OT, inputs, eps, sizes=sizes, policy=finish,
                         keep_state=keep_state, deadline=deadline, obs=obs,
                         device=device, theta=theta, y_b0=y_b0)

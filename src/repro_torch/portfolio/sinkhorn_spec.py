@@ -192,7 +192,8 @@ class SinkhornSpec(OTSpec):
     """ProblemSpec for log-domain Sinkhorn over the same (c, nu, mu)
     inputs as ``OT``. Subclasses OTSpec for the input-shaping glue
     (canonicalize, pad_group, plan artifacts); every algorithmic method
-    is overridden."""
+    is overridden. Batch placement only: the iteration is a
+    whole-instance program, so mesh matrix placement raises."""
 
     name = "sinkhorn"
     fused = False
@@ -337,6 +338,17 @@ class SinkhornSpec(OTSpec):
     def legacy_instance_dict(self, sol):
         return {"plan": sol.plan(), "cost": sol.cost, "phases": sol.phases,
                 "rounds": sol.rounds}
+
+    def matrix_instance(self, inputs, i, mi, ni, mp, np_, eps_i, mesh2,
+                        row_axis, col_axis, **kw):
+        raise NotImplementedError(
+            "the sinkhorn spec supports batch placement only; use "
+            "placement='batch' (or the push-relabel specs) for "
+            "row/col-sharded single instances")
+
+    def matrix_stack(self, rows, m_valid, n_valid, m: int, n: int):
+        raise NotImplementedError(
+            "the sinkhorn spec supports batch placement only")
 
 
 class KernelSinkhornSpec(SinkhornSpec):

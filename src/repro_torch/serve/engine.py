@@ -19,7 +19,6 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..core.device import resolve_device
 from ..obs import MetricsRegistry, Tracer, new_id
 from ..obs import now as _now
 from .collate import collate_bucket, keep_lanes
@@ -42,9 +41,10 @@ class OTService:
     point dimension and mode into shape buckets, pads each bucket, builds
     its costs in one kernel launch and dispatches it through
     ``core/api.solve`` under one policy (``compact=True``: the compacting
-    driver; ``compact=False``: lockstep). Point-set requests (no masses)
-    run the assignment solver; requests with (nu, mu) the general OT
-    solver. ``distance()`` is the one-shot wrapper.
+    driver; ``compact=False``: lockstep; ``mesh=``: the mesh-distributed
+    driver over that ``launch.mesh.Mesh``, on its devices). Point-set
+    requests (no masses) run the assignment solver; requests with (nu,
+    mu) the general OT solver. ``distance()`` is the one-shot wrapper.
 
     ``want=`` (artifact names, e.g. ``("cost", "plan_sparse")``) makes
     ``run_batch`` return per-request ``Solution`` views, and only the
@@ -77,7 +77,6 @@ class OTService:
         if metric not in COSTS:
             raise ValueError(f"unknown metric {metric!r}; expected one of "
                              f"{tuple(COSTS)}")
-        self.device = resolve_device(device)
         self.eps = eps
         self.metric = metric
         self.validate = bool(validate)
@@ -86,11 +85,11 @@ class OTService:
         self.buckets = tuple(buckets) if buckets else B.DEFAULT_BUCKETS
         self.compact = compact
         self.chunk = C.DEFAULT_CHUNK if chunk is None else int(chunk)
-        # from_legacy owns the compact/mesh keyword mapping (a mesh raises
-        # NotImplementedError until multi-device dispatch is ported)
-        self._policy = DispatchPolicy.from_legacy(
+        # from_legacy owns the compact/mesh keyword mapping; a mesh decides
+        # the device (its first), and a device= naming another raises
+        self._policy, self.device = DispatchPolicy.from_legacy(
             compact, mesh, chunk=self.chunk, buckets=self.buckets,
-            solver=solver)
+            solver=solver).on_mesh(device)
         self.want = None if want is None else tuple(want)
         self.mesh = mesh
         self.queue: List[OTRequest] = []
@@ -245,6 +244,8 @@ class OTService:
                         }
                     if st is not None:
                         out["dispatches"] = st.dispatches
+                        if hasattr(st, "devices"):
+                            out["devices"] = st.devices
                     results[i] = out
         assert all(r is not None for r in results)
         return results  # submission order

@@ -88,16 +88,25 @@ def degradation_ladder(policy, device=None) -> List[Tuple[str, Any, Any]]:
     """``[(level_name, policy, device), ...]``: the rungs a transient
     failure retries down.
 
-    One rung: the caller's policy on the caller's ``device`` (None:
-    CUDA). The reference adds a compact rung below a mesh policy (that
-    waits for multi-device dispatch, ROADMAP.md Queue 1 item 11) and a
-    host-CPU rung below an accelerator; the port has no CPU rung, so a
-    service built for the card keeps every attempt on the card, and a
-    service built with ``device="cpu"`` runs on the CPU from level 0.
-    :func:`run_with_recovery` still walks any longer ladder it is
-    given."""
-    dev = torch.device("cuda" if device is None else device)
-    return [(policy.resolved_mode(), policy, dev)]
+    Level 0 is the caller's policy on the caller's ``device`` (None:
+    CUDA); a mesh policy runs on its mesh, whose first device must be
+    ``device`` when one is given. Below a mesh policy comes the
+    reference's middle rung: ``compact`` (no mesh, no cross-device
+    traffic, one device) on the mesh's first device, with the policy's
+    chunk, buckets and guarantee. The reference's host-CPU rung is not
+    ported: a service built for the card keeps every attempt on the
+    card, and a service built with ``device="cpu"`` runs on the CPU from
+    level 0."""
+    from ..core.api import DispatchPolicy
+
+    if policy.resolved_mode() != "mesh":
+        dev = torch.device("cuda" if device is None else device)
+        return [(policy.resolved_mode(), policy, dev)]
+    pol, dev0 = policy.on_mesh(device)
+    compact = DispatchPolicy(mode="compact", chunk=policy.chunk,
+                             buckets=policy.buckets,
+                             guaranteed=policy.guaranteed)
+    return [("mesh", pol, dev0), ("compact", compact, dev0)]
 
 
 def run_with_recovery(

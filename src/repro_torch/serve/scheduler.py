@@ -16,9 +16,10 @@ splits that into a two-stage pipeline:
       admission check
       |
   [dispatch worker] feeds prepared buckets through the ``core/api.solve``
-      front door (the compacting driver; its propose steps launch
-      ``slack_propose``, or the fused kernels under a fused policy) and
-      resolves the per-request Futures
+      front door (mode "mesh" over the scheduler's mesh, as in the
+      reference: the mesh-distributed compacting driver; its propose
+      steps launch ``slack_propose``, or the fused kernels under a fused
+      policy) and resolves the per-request Futures
 
 with a bounded handoff queue between the stages: while the dispatch
 worker waits inside a solve, the collate worker pads and builds the NEXT
@@ -29,7 +30,9 @@ which for a thread that never set one is the device's default stream:
 the cost kernel the collate worker enqueues is therefore ordered before
 every kernel the dispatch worker enqueues on that bucket, and the
 caching allocator needs no ``record_stream``. Each worker makes the
-scheduler's device its current device before it starts.
+scheduler's device (the mesh's first) its current device before it
+starts. A mesh of several shards runs them on side streams of its own
+and synchronizes the devices before its shards read a bucket.
 
 Each resolved Future carries the same result dict as
 ``OTService.run_batch`` plus scheduling stats: ``wait_s`` (submit ->
@@ -260,10 +263,12 @@ class AsyncOTScheduler:
     Args:
       eps: default additive error (per-request override via ``submit``).
       metric: point-cloud cost metric.
-      mesh: multi-device dispatch, not ported yet (ROADMAP.md Queue 1 item
-        11): anything but None raises ``NotImplementedError``. Without it
-        the scheduler dispatches on the compacting driver, as the
-        reference does on a single device.
+      mesh: the ``launch.mesh.Mesh`` every bucket dispatches over (mode
+        "mesh", as in the reference). None: ``make_batch_mesh()`` (the
+        power-of-two prefix of the cards), or a one-device mesh on
+        ``device`` when that is given (``device="cpu"``: a CPU mesh).
+      placement: mesh placement of each bucket ("auto", "batch",
+        "matrix"; see ``core/distributed.choose_placement``).
       buckets: shape-bucket boundaries (core/batched.py defaults).
       chunk: k, phases per dispatch of the compacting driver.
       max_batch: max requests drained into one collate round.
@@ -277,13 +282,13 @@ class AsyncOTScheduler:
       faults: optional :class:`~repro_torch.serve.faults.FaultInjector`
         (chaos harness).
       retries_per_level / retry_backoff_s: transient-failure retry policy
-        per degradation-ladder rung (one rung: the scheduler's device);
-        a bucket that spends them is split in halves.
+        per degradation-ladder rung (mesh, then compact on the mesh's
+        first device); a bucket that spends them is split in halves.
       join_timeout_s: how long close() waits for each worker to exit
         before declaring it hung, failing pending Futures, and raising.
       policy: override the dispatch policy wholesale (e.g. a fused or
-        chunk-1 policy); default ``DispatchPolicy(mode="compact", chunk,
-        buckets, solver)``.
+        chunk-1 policy); default ``DispatchPolicy(mode="mesh", mesh,
+        placement, chunk, buckets, solver)``.
       sinks: metrics sinks (:class:`~repro_torch.obs.MetricsSink`) to
         stream counters/histograms/spans/events to, live. Empty (the
         default) costs one tuple check per observation.
@@ -291,9 +296,10 @@ class AsyncOTScheduler:
         ``stats`` view retains (the ``SchedulerStats.occupancy``
         bound). ``stats_dict()`` reports the window alongside the
         truncated history.
-      device: where buckets are built and solved; None means CUDA, and
-        raises at construction when CUDA is missing. ``"cpu"`` runs the
-        plain versions of the kernels.
+      device: where buckets are built (the mesh's first device); None
+        means CUDA, and raises at construction when CUDA is missing.
+        ``"cpu"`` runs the plain versions of the kernels. A device that
+        is not the first device of a given ``mesh`` raises.
     """
 
     def __init__(self, eps: float = 0.05, metric: str = "euclidean",
@@ -304,24 +310,28 @@ class AsyncOTScheduler:
                  retries_per_level: int = 2, retry_backoff_s: float = 0.05,
                  join_timeout_s: float = 30.0,
                  policy=None, sinks=(), occupancy_window: int = 64,
-                 solver: str = "pushrelabel", device=None):
+                 solver: str = "pushrelabel", device=None,
+                 placement: str = "auto"):
         from ..core import batched as B
         from ..core import compaction as C
         from ..core import validate as V
         from ..core.api import DispatchPolicy
         from ..core.costs import COSTS
+        from ..core.distributed import same_device
+        from ..launch.mesh import make_batch_mesh, make_mesh
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item "
-                "11, multi-device)")
         if metric not in COSTS:
             raise ValueError(f"unknown metric {metric!r}; expected one of "
                              f"{tuple(COSTS)}")
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            # the workers are new threads: name the card explicitly
-            dev = torch.device("cuda", torch.cuda.current_device())
+        if mesh is None:
+            # make_mesh names the card explicitly: the workers are new
+            # threads, which start on device 0
+            mesh = (make_batch_mesh() if device is None
+                    else make_mesh((1,), ("data",), resolve_device(device)))
+        dev = mesh.flat_devices[0]
+        if device is not None and not same_device(device, dev):
+            raise ValueError(f"device={device!r} disagrees with the mesh, "
+                             f"whose first device is {dev}")
         self.device = dev
         self.eps = float(eps)
         self.metric = metric
@@ -332,8 +342,8 @@ class AsyncOTScheduler:
         # policy; ``solver`` routes OT buckets through the solver
         # portfolio (ignored when an explicit ``policy`` is passed)
         self._policy = policy if policy is not None else DispatchPolicy(
-            mode="compact", chunk=self.chunk, buckets=self.buckets,
-            solver=solver)
+            mode="mesh", mesh=mesh, placement=placement, chunk=self.chunk,
+            buckets=self.buckets, solver=solver)
         self.validate = bool(validate)
         self.admission_tol = (V.DEFAULT_TOL if admission_tol is None
                               else float(admission_tol))
@@ -341,8 +351,8 @@ class AsyncOTScheduler:
         self._retries_per_level = int(retries_per_level)
         self._retry_backoff_s = float(retry_backoff_s)
         self._join_timeout_s = float(join_timeout_s)
-        # transient dispatch failures retry on this ladder (one rung, on
-        # self.device), re-raising when every retry is spent
+        # transient dispatch failures retry down this ladder (mesh, then
+        # compact on self.device), re-raising when every retry is spent
         self._ladder = _ft.degradation_ladder(self._policy, self.device)
         self.max_batch = int(max_batch)
         self.linger_s = float(linger_ms) / 1e3
@@ -928,7 +938,7 @@ class AsyncOTScheduler:
                 "bucket": item.bucket,
                 "wait_s": wait_s,
                 "solve_s": solve_s,
-                "devices": 1,            # one device until item 11
+                "devices": st.devices,
                 "dispatches": st.dispatches,
                 "occupancy": occupancy,
                 "eps": float(item.eps[i]),

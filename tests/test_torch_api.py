@@ -138,15 +138,37 @@ def test_want_gating_and_validation():
         tapi.solve(tapi.OT, [], 0.1, want=("matching",), device="cpu")
 
 
+def _cpu_mesh(d):
+    from repro_torch.launch.mesh import make_small_mesh
+
+    return make_small_mesh((d,), ("data",), devices="cpu")
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="mesh"), "item 11"), (dict(mesh=object()), "item 11"),
-    # validate=True (item 7) is ported: tests/test_torch_validate.py;
-    # the row/col matrix placement of a mesh is still item 11
-    (dict(mesh=object(), placement="matrix"), "item 11"),
+    (dict(mode="mesh"), "item 11"), (dict(mesh=2), "item 11"),
+    (dict(mesh=4, placement="matrix"), "item 11"),
 ])
 def test_unported_policies_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.DispatchPolicy(**kw)
+    """The mesh policies of ROADMAP.md Queue 1 item 11 are ported: each
+    builds, resolves to mode "mesh" and solves like compact (batch
+    placement bit for bit, matrix placement with the same integer
+    state)."""
+    kw = dict(kw)
+    if "mesh" in kw:
+        kw["mesh"] = _cpu_mesh(kw["mesh"])
+    else:
+        kw["mesh"] = _cpu_mesh(1)       # mesh=None would mean the cards
+    pol = tapi.DispatchPolicy(**kw)
+    assert pol.resolved_mode() == "mesh", item
+    inputs, sizes = _dict_batch("assignment", 2)
+    got, gst = tapi.solve(tapi.ASSIGNMENT, inputs, 0.2, pol, sizes=sizes)
+    ref, _ = tapi.solve(tapi.ASSIGNMENT, inputs, 0.2,
+                        tapi.DispatchPolicy(mode="compact"), sizes=sizes,
+                        device="cpu")
+    assert gst.placement == kw.get("placement", "batch")
+    for f in ("matching", "phases", "rounds"):
+        torch.testing.assert_close(getattr(got, f), getattr(ref, f),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", ["assignment", "ot"])

@@ -780,3 +780,150 @@ def test_cost_matrix_keeps_nan_like_plain(dev, metric, d):
     rtol, atol = tolerance(metric, d)
     ok = ~torch.isnan(ref)
     torch.testing.assert_close(got[ok], ref[ok], rtol=rtol, atol=atol)
+
+
+def _record_launch_devices(monkeypatch):
+    """Wrap every loaded launcher to record the current device at the
+    moment of launch, and ``torch.cuda.device`` to record the devices the
+    wrappers enter. Returns the two logs."""
+    ops.build_kernels()
+    at_launch, entered = [], []
+    real_device = torch.cuda.device
+
+    class Recorded(real_device):
+        def __init__(self, d):
+            entered.append(torch.device(d))
+            super().__init__(d)
+
+    def wrap(name, fn):
+        def launch(*args):
+            at_launch.append((name, torch.cuda.current_device()))
+            return fn(*args)
+        return launch
+
+    monkeypatch.setattr(torch.cuda, "device", Recorded)
+    monkeypatch.setattr(ops, "_libs", {n: wrap(n, f)
+                                       for n, f in ops._libs.items()})
+    return at_launch, entered
+
+
+def _launch_from_worker(dev, current):
+    """Run every wrapper from a new thread whose current device is
+    ``current``; returns the outputs (moved to the CPU) by kernel name."""
+    import threading
+
+    from _torch_wrappers import wrapper_calls
+
+    out, errors = {}, []
+
+    def work():
+        try:
+            torch.cuda.set_device(current)
+            for name, call in wrapper_calls(dev).items():
+                res = call()
+                res = res if isinstance(res, tuple) else (res,)
+                out[name] = [r.cpu() for r in res]
+        except Exception as e:      # re-raised in the caller
+            errors.append(e)
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors, errors
+    return out
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_tensors_device_from_a_worker(dev,
+                                                             monkeypatch):
+    """From a worker thread (a new thread starts on device 0), every
+    wrapper enters its tensors' device and the launcher runs with it
+    current. One card: the recorders show the device entered and current
+    at launch; the kernels' outputs equal their plain versions."""
+    from _torch_wrappers import wrapper_calls
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    at_launch, entered = _record_launch_devices(monkeypatch)
+    got = _launch_from_worker(card, card)
+    assert sorted(n for n, _ in at_launch) == sorted(ops._ENTRY)
+    assert {d for _, d in at_launch} == {card.index}
+    assert card in entered
+    want = {n: call() for n, call in wrapper_calls("cpu").items()}
+    for n, res in want.items():
+        res = res if isinstance(res, tuple) else (res,)
+        for g, w in zip(got[n], res):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_a_second_card(dev, monkeypatch):
+    """Two cards: tensors on cuda:1, launched from a worker whose current
+    device is cuda:0; every launch happens with cuda:1 current and the
+    outputs equal the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the tensors must lie on a "
+                    "card other than the thread's current one")
+    from _torch_wrappers import wrapper_calls
+
+    at_launch, _ = _record_launch_devices(monkeypatch)
+    got = _launch_from_worker(torch.device("cuda", 1), 0)
+    assert {d for _, d in at_launch} == {1}
+    want = {n: call() for n, call in wrapper_calls("cpu").items()}
+    for n, res in want.items():
+        res = res if isinstance(res, tuple) else (res,)
+        for g, w in zip(got[n], res):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_name", ["assignment", "ot"])
+@pytest.mark.parametrize("placement,fused", [("batch", False),
+                                             ("batch", True),
+                                             ("matrix", False)])
+def test_mesh_logical_shards_on_card_equal_compact(dev, spec_name,
+                                                   placement, fused):
+    """Logical shards of the card (separate streams, worker threads):
+    batch placement at D = 4 (stepped and fused) and matrix placement on
+    a (2, 2) grid give the compact solve's integer state on the card."""
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.launch.mesh import make_small_mesh
+
+    rng = np.random.default_rng(31)
+    b, n = 4, 384
+    c = torch.as_tensor(rng.uniform(size=(b, n, n)).astype(np.float32),
+                        device=dev)
+    inputs = {"c": c}
+    if spec_name == "ot":
+        for k in ("nu", "mu"):
+            inputs[k] = torch.as_tensor(rng.dirichlet(
+                np.ones(n), size=b).astype(np.float32), device=dev)
+    spec = ASSIGNMENT if spec_name == "assignment" else OT
+    if placement == "matrix":
+        inputs = {k: v[:1] for k, v in inputs.items()}
+        mesh = make_small_mesh((2, 2), ("data", "model"), devices=dev)
+    else:
+        mesh = make_small_mesh((4,), ("data",), devices=dev)
+    keep = placement == "batch" or spec_name == "ot"
+    ref, rst = solve(spec, inputs, 0.05, DispatchPolicy(mode="compact"),
+                     keep_state=keep, device=dev)
+    ops.reset_launches()
+    got, st = solve(spec, inputs, 0.05,
+                    DispatchPolicy(mode="mesh", mesh=mesh,
+                                   placement=placement, fused=fused),
+                    keep_state=keep, device=dev)
+    torch.cuda.synchronize()
+    assert st.placement == placement and st.devices == 4
+    kernel = ("slack_propose" if not fused else
+              f"fused_{'assignment' if spec_name == 'assignment' else 'ot'}"
+              "_phases")
+    assert ops.launches[kernel] > 0
+    if placement == "batch":
+        for f in rst.final_state._fields:
+            assert torch.equal(getattr(st.final_state, f),
+                               getattr(rst.final_state, f)), f
+    elif spec_name == "ot":
+        for f in rst.final_state._fields:
+            assert torch.equal(getattr(got.state, f),
+                               getattr(rst.final_state, f)), f
+    else:
+        for f in ("matching", "phases", "rounds", "y_b", "y_a"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.cost_matrix import tolerance
 
 from _propose_hash import umax_salt
+from _torch_wrappers import wrapper_calls as _wrapper_calls
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -409,3 +410,46 @@ def test_cost_matrix_plain_keeps_nan_like_reference(metric):
     ref = np.asarray(jax_build_cost_matrix(x, y, metric))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
     assert np.isnan(got[4]).all() and not np.isnan(np.delete(got, 4, 0)).any()
+
+
+@pytest.mark.parametrize("name", sorted(ops._ENTRY))
+def test_each_wrapper_launches_under_its_tensors_device(monkeypatch, name):
+    """Every wrapper makes its tensors' device current around the
+    launcher and the workspace query (the ``.cu`` launchers size and
+    launch on ``cudaGetDevice``'s device). Here the tensors lie on the
+    CPU and ``_on_cuda`` is patched to say they do not: the recorder
+    stands in for ``torch.cuda.device`` and the launchers."""
+    cpu = torch.device("cpu")
+    entered, seen = [], []
+
+    class Current:
+        def __init__(self, d):
+            self.d = torch.device(d)
+
+        def __enter__(self):
+            entered.append(self.d)
+
+        def __exit__(self, *exc):
+            entered.pop()
+
+    def launcher(kernel):
+        return lambda *a: seen.append((kernel, tuple(entered))) or 0
+
+    def workspace(kernel):
+        return lambda *a: seen.append((kernel + ":ws", tuple(entered))) or 16
+
+    calls = _wrapper_calls(cpu)
+    monkeypatch.setattr(torch.cuda, "device", Current)
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(ops, "_stream", lambda dev: 0)
+    monkeypatch.setattr(ops, "build_kernels", lambda: 0.0)
+    monkeypatch.setattr(ops, "launches", dict.fromkeys(ops._ENTRY, 0))
+    monkeypatch.setattr(ops, "_libs", {k: launcher(k) for k in ops._ENTRY})
+    monkeypatch.setattr(ops, "_workspace_fns",
+                        {k: workspace(k) for k in ops._WORKSPACE})
+    calls[name]()
+    want = [(name, (cpu,))]
+    if name in ops._WORKSPACE:
+        want = [(name + ":ws", (cpu,))] + want
+    assert seen == want
+    assert ops.launches[name] == 1 and not entered

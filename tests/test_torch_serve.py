@@ -254,15 +254,23 @@ def test_service_events_equal_reference():
 
 
 def test_service_mesh_and_device_rules():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        OTService(eps=0.1, mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import make_small_mesh
+
+    mesh = make_small_mesh((2,), ("data",), devices="cpu")
+    svc = OTService(eps=0.1, mesh=mesh, device="cpu")
+    assert svc.device == torch.device("cpu")
+    assert svc._policy.resolved_mode() == "mesh"
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        OTService(eps=0.1, mesh=mesh, device="meta")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             OTService(eps=0.1)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             AsyncOTScheduler(eps=0.1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AsyncOTScheduler(eps=0.1, mesh=object(), device="cpu")
+    with AsyncOTScheduler(eps=0.1, mesh=mesh, device="cpu",
+                          join_timeout_s=JOIN) as sched:
+        assert sched.device == torch.device("cpu")
+        assert sched._policy.mesh is mesh
 
 
 # --------------------------------------------------------------------------
@@ -491,7 +499,7 @@ def _two_cpu_rungs(monkeypatch):
     real = ft.degradation_ladder
 
     def two_rungs(policy, device=None):
-        (rung,) = real(policy, device)
+        rung = real(policy, device)[0]
         return [rung, ("cpu", rung[1], torch.device("cpu"))]
 
     monkeypatch.setattr(ft, "degradation_ladder", two_rungs)
@@ -530,10 +538,14 @@ def test_scheduler_spent_transients_split_the_bucket():
         clean_costs = [f.result(timeout=WAIT).cost
                        for f in [clean.submit(x, y, want=("cost",))
                                  for x, y in reqs]]
+    # a compact policy has a one-rung ladder (a mesh policy's second
+    # rung: test_scheduler_mesh_ladder_walks_to_compact_then_splits)
+    one_rung = DispatchPolicy(mode="compact")
     inj = FaultInjector(FaultPlan(transient_dispatches=2))
     sink = InMemorySink()
     with _sched(eps=0.2, linger_ms=100, faults=inj, retries_per_level=2,
-                retry_backoff_s=0.001, sinks=(sink,)) as sched:
+                retry_backoff_s=0.001, sinks=(sink,),
+                policy=one_rung) as sched:
         sols = [f.result(timeout=WAIT)
                 for f in [sched.submit(x, y, want=("cost",))
                           for x, y in reqs]]
@@ -547,7 +559,7 @@ def test_scheduler_spent_transients_split_the_bucket():
 
     inj = FaultInjector(FaultPlan(transient_dispatches=2))
     with _sched(eps=0.2, faults=inj, retries_per_level=3,
-                retry_backoff_s=0.001) as sched:
+                retry_backoff_s=0.001, policy=one_rung) as sched:
         f = sched.submit(*reqs[0], want=("cost",))
         assert sched.flush(timeout=WAIT)
         assert f.result(timeout=WAIT).stats.attempts == 3
@@ -556,7 +568,7 @@ def test_scheduler_spent_transients_split_the_bucket():
         assert f.result(timeout=0).stats.attempts == 1
     inj = FaultInjector(FaultPlan(transient_dispatches=5))
     with _sched(eps=0.2, faults=inj, retries_per_level=2,
-                retry_backoff_s=0.001) as sched:
+                retry_backoff_s=0.001, policy=one_rung) as sched:
         f = sched.submit(*reqs[0], want=("cost",))
         assert sched.flush(timeout=WAIT)
         with pytest.raises(TransientDispatchError):
@@ -876,3 +888,140 @@ def test_scheduler_portfolio_end_to_end():
             s = f.result(timeout=WAIT)
             assert s.stats.solver == "sinkhorn"
             assert s.additive_gap() <= s.additive_gap_bound() + 1e-6
+
+
+# --------------------------------------------------------------------------
+# mesh dispatch through the services (ROADMAP.md Queue 1 item 11)
+# --------------------------------------------------------------------------
+
+def _cpu_mesh(d):
+    from repro_torch.launch.mesh import make_small_mesh
+
+    return make_small_mesh((d,), ("data",), devices="cpu")
+
+
+def test_scheduler_default_policy_is_mesh_like_the_reference():
+    """The scheduler's default policy is mode "mesh" over its mesh, as the
+    reference's is, and its buckets report it: one device on a CPU
+    scheduler, whose mesh is built on its device."""
+    reqs = _requests(21, count=4)
+    with _sched(eps=0.1, linger_ms=50) as sched:
+        assert sched._policy.resolved_mode() == "mesh"
+        assert sched._policy.mesh.flat_devices == (torch.device("cpu"),)
+        futs = [sched.submit(x, y, nu, mu, want=("cost",))
+                for x, y, nu, mu in reqs]
+        sols = [f.result(timeout=WAIT) for f in futs]
+    for s in sols:
+        assert (s.stats.mode, s.stats.devices, s.stats.placement) == (
+            "mesh", 1, "batch")
+    with JScheduler(eps=0.1, join_timeout_s=JOIN) as ref:
+        assert ref._policy.resolved_mode() == "mesh"
+
+
+def test_mesh_degradation_ladder_has_the_compact_rung():
+    """Below a mesh policy: compact on the mesh's first device, with the
+    policy's chunk, buckets and guarantee (the reference's middle rung);
+    no CPU rung."""
+    mesh = _cpu_mesh(2)
+    pol = DispatchPolicy(mode="mesh", mesh=mesh, chunk=3, buckets=(16, 64),
+                         guaranteed=True, fused=True)
+    rungs = degradation_ladder(pol, "cpu")
+    assert [r[0] for r in rungs] == ["mesh", "compact"]
+    assert rungs[0][1] is pol and {r[2] for r in rungs} == {
+        torch.device("cpu")}
+    compact = rungs[1][1]
+    assert (compact.mode, compact.chunk, compact.buckets,
+            compact.guaranteed) == ("compact", 3, (16, 64), True)
+    ref = ft_ref_ladder(JPolicy(mode="mesh", mesh=object(), chunk=3,
+                                buckets=(16, 64), guaranteed=True))
+    assert [r[0] for r in ref][:2] == ["mesh", "compact"]
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        degradation_ladder(pol, "meta")
+
+
+def ft_ref_ladder(policy):
+    from repro.serve.ft import degradation_ladder as jladder
+
+    return jladder(policy)
+
+
+def test_scheduler_mesh_ladder_walks_to_compact_then_splits():
+    """On the default mesh policy, transients spend the mesh rung, then
+    the compact rung, then split the bucket; the halves resolve on the
+    mesh rung with the clean results."""
+    reqs = _cloud_batch(seed=18, n_req=4)
+    with _sched(eps=0.2, linger_ms=100) as clean:
+        clean_costs = [f.result(timeout=WAIT).cost
+                       for f in [clean.submit(x, y, want=("cost",))
+                                 for x, y in reqs]]
+    inj = FaultInjector(FaultPlan(transient_dispatches=3))
+    with _sched(eps=0.2, linger_ms=100, faults=inj, retries_per_level=2,
+                retry_backoff_s=0.001) as sched:
+        sols = [f.result(timeout=WAIT)
+                for f in [sched.submit(x, y, want=("cost",))
+                          for x, y in reqs]]
+        assert [(s.stats.ladder_level, s.stats.attempts, s.stats.mode)
+                for s in sols] == [(1, 4, "compact")] * 4
+        assert [s.cost for s in sols] == clean_costs
+    inj = FaultInjector(FaultPlan(transient_dispatches=4))
+    with _sched(eps=0.2, linger_ms=100, faults=inj, retries_per_level=2,
+                retry_backoff_s=0.001) as sched:
+        sols = [f.result(timeout=WAIT)
+                for f in [sched.submit(x, y, want=("cost",))
+                          for x, y in reqs]]
+        assert [(s.stats.ladder_level, s.stats.attempts, s.stats.mode)
+                for s in sols] == [(0, 5, "mesh")] * 4
+        assert [s.cost for s in sols] == clean_costs
+        assert sched.stats_dict()["retries"] == 3
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_services_and_ragged_on_a_mesh_equal_compact(d):
+    """``OTService(mesh=...)``, ``AsyncOTScheduler(mesh=...)`` and
+    ``solve_*_ragged(mesh=...)`` on a logical d-device CPU mesh give the
+    compact results (costs, phases, integer state)."""
+    from repro_torch.core import batched as tB
+
+    reqs = _requests(22, count=6)
+    mesh = _cpu_mesh(d)
+    want = ("cost", "state")
+    got_svc = OTService(eps=0.1, mesh=mesh, want=want)
+    ref_svc = OTService(eps=0.1, want=want, device="cpu")
+    for x, y, nu, mu in reqs:
+        got_svc.submit(x, y, nu, mu)
+        ref_svc.submit(x, y, nu, mu)
+    for g, r in zip(got_svc.run_batch(), ref_svc.run_batch()):
+        assert g.cost == r.cost and g.phases == r.phases
+        assert (g.stats.mode, g.stats.devices) == ("mesh", d)
+        for f, rv in r.state()._asdict().items():
+            assert torch.equal(getattr(g.state(), f), rv), f
+    legacy = OTService(eps=0.1, mesh=mesh)
+    legacy.submit(*reqs[0])
+    assert legacy.run_batch()[0]["devices"] == d
+    with AsyncOTScheduler(eps=0.1, mesh=mesh, linger_ms=50,
+                          join_timeout_s=JOIN) as sched:
+        futs = [sched.submit(x, y, nu, mu, want=("cost",))
+                for x, y, nu, mu in reqs]
+        costs = [f.result(timeout=WAIT).cost for f in futs]
+    ref_svc2 = OTService(eps=0.1, want=("cost",), device="cpu")
+    for x, y, nu, mu in reqs:
+        ref_svc2.submit(x, y, nu, mu)
+    assert costs == [s.cost for s in ref_svc2.run_batch()]
+    rng = np.random.default_rng(d)
+    cs = [rng.uniform(size=(m, m + 3)).astype(np.float32)
+          for m in (9, 12, 15, 20, 11)]
+    got = tB.solve_assignment_ragged(cs, 0.1, mesh=mesh)
+    ref = tB.solve_assignment_ragged(cs, 0.1, device="cpu")
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g["matching"], r["matching"])
+        assert g["cost"] == r["cost"] and g["phases"] == r["phases"]
+    ot = [(x, y, nu, mu) for x, y, nu, mu in reqs if nu is not None]
+    from repro_torch.core.costs import build_cost_matrix
+
+    ot_in = [(build_cost_matrix(x, y, device="cpu").numpy(), nu, mu)
+             for x, y, nu, mu in ot]
+    got = tB.solve_ot_ragged(ot_in, 0.1, mesh=mesh)
+    ref = tB.solve_ot_ragged(ot_in, 0.1, device="cpu")
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g["plan"], r["plan"])
+        assert g["phases"] == r["phases"]

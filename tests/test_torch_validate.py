@@ -298,15 +298,20 @@ def test_from_legacy_equals_reference(compact):
 
 
 def test_from_legacy_mesh_rules():
+    from repro_torch.launch.mesh import make_small_mesh
+
+    mesh = make_small_mesh((2,), ("data",), devices="cpu")
     with pytest.raises(ValueError, match="compact=True"):
         tapi.DispatchPolicy.from_legacy(False, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.DispatchPolicy.from_legacy(True, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbatched.solve_ot_ragged([], 0.1, mesh=object(), device="cpu")
+    pol = tapi.DispatchPolicy.from_legacy(True, mesh=mesh)
+    assert (pol.mode, pol.mesh, pol.resolved_mode()) == ("mesh", mesh,
+                                                          "mesh")
+    ref = japi.DispatchPolicy.from_legacy(True, mesh=object())
+    assert (ref.mode, ref.resolved_mode()) == ("mesh", "mesh")
+    assert tbatched.solve_ot_ragged([], 0.1, mesh=mesh, device="cpu") == []
 
 
-# the names that wait for multi-device dispatch (ROADMAP.md Queue 1
+# the names of multi-device dispatch (ROADMAP.md Queue 1
 # item 11): core/distributed.py and the integer-input solvers
 ITEM_11 = {"DistributedStats", "choose_placement",
            "solve_assignment_distributed", "solve_ot_distributed",
@@ -314,7 +319,9 @@ ITEM_11 = {"DistributedStats", "choose_placement",
 
 
 def test_core_all_is_reference_less_item_11():
-    assert set(tcore.__all__) == set(jcore.__all__) - ITEM_11
+    # item 11 is ported: the surface is now the reference's whole
+    assert ITEM_11 <= set(tcore.__all__)
+    assert set(tcore.__all__) == set(jcore.__all__)
     assert len(tcore.__all__) == len(set(tcore.__all__))
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None, name
@@ -325,5 +332,6 @@ def test_solve_stats_fields_are_reference_less_item_11():
 
     ref = {f.name for f in dataclasses.fields(jcore.SolveStats)}
     got = {f.name for f in dataclasses.fields(tcore.SolveStats)}
-    # devices / placement / collapsed_at describe mesh dispatch (item 11)
-    assert got == ref - {"devices", "placement", "collapsed_at"}
+    # devices / placement / collapsed_at (mesh dispatch, item 11) ported
+    assert {"devices", "placement", "collapsed_at"} <= got
+    assert got == ref
