@@ -96,14 +96,37 @@ Phases, in order; any failure exits non-zero:
      (a)'s batches, its integer outputs equal to the compact solve's,
      floats within the stated tolerance; ``slack_propose`` and, under
      ``fused=True``, the fused kernels must launch on each counted run;
- 10. one JSON line with every kernel's numbers;
- 11. last line: ``{"ok": true, "device": {...}}``.
+ 10. the audit layer (``repro_torch.analysis``) on the card: (a) under
+     ``set_debug_checks(True)`` the solves of phases 3 and 4 (Fig. 1
+     assignment, OT n = 4096) on the default policy and with
+     ``fused=True``, every integer field and certificate equal to the
+     plain solves of phases 3, 4 and 6, ``slack_propose`` launched, no
+     fused kernel (the sanitizer runs the stepped route), one "debug"
+     read per chunk plus one each for the prologue and the epilogue;
+     wall time with and without the checks; (b) a B = 4, 2048^2
+     assignment batch and an OT batch, each with one NaN cost in lane
+     1, ``validate=False``: ``DebugCheckError`` ("nan", lane 1) with the
+     checks, a returned solve without them; (c) chunks on the card from
+     corrupted states (``match_ba = 99``, ``free_b = -5``) raise the
+     reference's messages before any kernel launches, and a clean state
+     passes; (d) ``AsyncOTScheduler`` (``validate=False``, checks on,
+     ``DispatchPolicy(mode="compact")``) with 8 point-cloud requests (d
+     = 2, euclidean, n 1024-2048, eps 0.1, every other one OT), one with
+     a NaN point: that one comes back ``RequestRejected``, the other
+     seven at ladder level 0, one quarantined, ``cost_matrix`` and
+     ``slack_propose`` launched; (e) ``python -m repro_torch.analysis
+     --strict`` in a child process exits 0, its dynamic pass on the card
+     (no kernel built or loaded anew across the descent), and no kernel
+     was built anew during this phase;
+ 11. one JSON line with every kernel's numbers;
+ 12. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
-each solve of phase 7, phase 8's (a) and (b) together (the serve route)
-and each run of phase 9 are driven with the launch counts set to 0 just
-before and read just after; the kernels line gives each kernel's
-launches on its route, and on the serve route as ``serve_launches``.
+each solve of phase 7, phase 8's (a) and (b) together (the serve route),
+each run of phase 9 and each sanitized solve of phase 10 are driven with
+the launch counts set to 0 just before and read just after; the kernels
+line gives each kernel's launches on its route, and on the serve route
+as ``serve_launches``.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -115,6 +138,7 @@ import copy
 import gc
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -172,6 +196,12 @@ SIZES = {
     # logical (row, col) grid of matrix placement
     "mesh": {"batch": 4, "assignment": (10_000, 0.01), "ot": (4096, 0.05),
              "logical": (2, 4), "grid": (2, 2)},
+    # phase 10, the audit layer: (b) the NaN batches (B, n, eps of each
+    # problem), (c) the corrupted chunks' (B, n), (d) the scheduler's
+    # requests (count, n range, eps, the NaN one)
+    "audit": {"nan": (4, 2048, 0.05), "corrupt": (2, 64),
+              "requests": 8, "sizes": (1024, 2048), "eps": 0.1,
+              "nan_at": 3},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -471,7 +501,15 @@ def main() -> int:
         return fail("multi-device dispatch")
     log(f"[9] done at {time.monotonic() - t_start:.0f} s")
 
-    # -- 10. kernels line -----------------------------------------------
+    # -- 10. the audit layer, counted --------------------------------------
+    t10 = time.monotonic()
+    if not phase_audit(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the audit layer")
+    record["phases"]["audit"]["phase_s"] = time.monotonic() - t10
+    log(f"[10] phase 10 took {time.monotonic() - t10:.1f} s; done at "
+        f"{time.monotonic() - t_start:.0f} s")
+
+    # -- 11. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -492,7 +530,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[10] record written to {args.out}")
+    log(f"[11] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2063,6 +2101,291 @@ def phase_mesh(torch, ops, rdev, dev, record, ctx, launches) -> bool:
     launches["mesh"] = mesh_launches
     res["launches"] = mesh_launches
     record["phases"]["mesh"] = res
+    return ok
+
+
+def _sanitized(torch, ops, rdev, fn):
+    """``fn()`` under ``set_debug_checks(True)``, with the launch and sync
+    counts set to 0 just before and read just after: ``(fn(), launches,
+    syncs)``."""
+    from repro_torch.analysis import set_debug_checks
+
+    set_debug_checks(True)
+    try:
+        ops.reset_launches()
+        rdev.reset_sync_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ops.launches), dict(rdev.sync_counts)
+    finally:
+        set_debug_checks(None)
+
+
+def _raised(fn, exc_type):
+    """The ``exc_type`` error ``fn()`` raised, or None when it returned."""
+    try:
+        fn()
+    except exc_type as e:
+        return e
+    return None
+
+
+def _audit_solves(torch, ops, rdev, dev, record, ctx, res) -> bool:
+    """(a): phases 3 and 4's solves again under the checks, on the
+    default policy and with ``fused=True``; every integer field and
+    certificate equal to the plain solves of phases 3, 4 and 6."""
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
+
+    ok = True
+    n_a, eps_a = SIZES["assignment"]
+    c_a = ctx["assignment_c"]
+    _, state3, _ = ctx["assignment"][0]       # the default policy's solve
+    (n_o, eps_o, exact), (c_o, nu, mu), state4, _ = ctx["ot"][0]
+    cells = [
+        ("assignment", False, "assignment", state3,
+         lambda pol: solve(ASSIGNMENT, {"c": c_a[None]}, eps_a, pol,
+                           want=("cost", "duals", "matching", "state"),
+                           device=dev)[0],
+         lambda sol: _assignment_certificates(sol, n_a, False)),
+        ("ot", exact, "ot", state4,
+         lambda pol: solve(OT, [(c_o, nu, mu)], eps_o, pol,
+                           want=("cost", "duals", "plan_sparse", "state"),
+                           device=dev)[0],
+         lambda sol: _ot_certificates(sol, n_o, nu)),
+    ]
+    for name, guaranteed, rec_name, state, run, certify in cells:
+        for fused in (False, True):
+            plain = record["phases"][("fused_" if fused else "")
+                                     + rec_name][0]
+
+            def timed():
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                sol = run(DispatchPolicy(guaranteed=guaranteed, fused=fused))
+                sol.cost
+                torch.cuda.synchronize()
+                return sol, time.monotonic() - t0
+
+            (sol, wall), lc, sc = _sanitized(torch, ops, rdev, timed)
+            cert_ok, cert = certify(sol)
+            d = cert["dispatches"]
+            on_card = all(t.is_cuda for t in sol.state())
+            diff = _state_diff(sol.state(), state)
+            # phase 6's plain fused solves equal phase 3/4's; both held
+            cert_diff = sorted(
+                k for k in cert
+                for ref in (record["phases"][rec_name][0], plain)
+                if cert[k] != ref[k])
+            fused_launches = (lc["fused_assignment_phases"]
+                              + lc["fused_ot_phases"])
+            row = {"problem": name, "fused": fused, "wall_s": wall,
+                   "plain_wall_s": plain["wall_s"],
+                   "dispatches": d, "debug_reads": sc["debug"],
+                   "chunk_reads": sc["chunk"], "round_reads": sc["round"],
+                   "state_differs": diff, "cert_differs": cert_diff,
+                   "launches": lc, **cert}
+            log(f"[10] (a) {json.dumps(row, default=float)}")
+            res["solves"].append(row)
+            ok &= bool(cert_ok and on_card and not diff and not cert_diff
+                       and lc["slack_propose"] > 0 and fused_launches == 0
+                       and lc["sinkhorn_row_update"] == 0
+                       and sc["chunk"] == d and sc["debug"] == d + 2)
+            del sol
+    return ok
+
+
+def _audit_nan(torch, ops, rdev, dev, ctx, res) -> bool:
+    """(b): one NaN cost in lane 1 of an assignment and an OT batch,
+    ``validate=False``: ``DebugCheckError`` with the checks (before any
+    kernel launches), a returned solve without them."""
+    from repro_torch.analysis import set_debug_checks
+    from repro_torch.analysis.checked import DebugCheckError
+    from repro_torch.core.api import ASSIGNMENT, OT, DispatchPolicy, solve
+
+    b, n, eps = SIZES["audit"]["nan"]
+    gen = torch.Generator(device=dev).manual_seed(ctx["seed"])
+    ok = True
+    for name, spec in (("assignment", ASSIGNMENT), ("ot", OT)):
+        c = torch.rand((b, n, n), device=dev, generator=gen)
+        c[1, 5, 7] = float("nan")
+        inputs = {"c": c}
+        if name == "ot":
+            inputs["nu"] = torch.full((b, n), 1.0 / n, device=dev)
+            inputs["mu"] = torch.full((b, n), 1.0 / n, device=dev)
+        pol = DispatchPolicy(validate=False)
+
+        def run():
+            return solve(spec, inputs, eps, pol, want=("cost",),
+                         device=dev)
+
+        err, lc, sc = _sanitized(
+            torch, ops, rdev, lambda: _raised(run, DebugCheckError))
+        set_debug_checks(False)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            costs = run().cost()
+            wall = time.monotonic() - t0
+        finally:
+            set_debug_checks(None)
+        row = {"problem": name, "shape": [b, n, n],
+               "raised": None if err is None else str(err),
+               "check": getattr(err, "check", None),
+               "lane": getattr(err, "lane", None),
+               "launches_before_raise": lc, "debug_reads": sc["debug"],
+               "plain_returned": list(costs.shape), "plain_wall_s": wall,
+               "plain_cost_lane1_finite": bool(np.isfinite(costs[1]))}
+        log(f"[10] (b) {json.dumps(row, default=float)}")
+        res["nan"].append(row)
+        ok &= bool(err is not None and "nan" in str(err) and err.lane == 1
+                   and sum(lc.values()) == 0 and costs.shape == (b,))
+        del c, inputs
+    return ok
+
+
+def _audit_corrupt(torch, ops, dev, ctx, res) -> bool:
+    """(c): chunks on the card from corrupted states raise the
+    reference's messages before any kernel launches; the clean state
+    runs and launches ``slack_propose``."""
+    from repro_torch.analysis.checked import DebugCheckError, checked_spec_fns
+    from repro_torch.core.api import ASSIGNMENT, OT
+
+    b, n = SIZES["audit"]["corrupt"]
+    rng = np.random.default_rng([ctx["seed"], 10])
+    c = rng.random((b, n, n)).astype(np.float32)
+    ok = True
+    for spec, field, value, match in (
+            (ASSIGNMENT, "match_ba", 99, "matching index out of range"),
+            (OT, "free_b", -5, "negative free mass")):
+        inputs = {"c": c}
+        if spec is OT:
+            inputs["nu"] = np.full((b, n), 1.0 / n, np.float32)
+            inputs["mu"] = np.full((b, n), 1.0 / n, np.float32)
+        p = spec.prepare(spec.canonicalize(inputs, dev), 0.1)
+        prologue, init, chunk, _, _ = checked_spec_fns(spec, 2)
+        data, ctx_ = prologue(p.ops)
+        state = init(data, ctx_)
+        bad = state._replace(**{field: torch.full_like(getattr(state, field),
+                                                       value)})
+        ops.reset_launches()
+        err = _raised(lambda: chunk(data, bad), DebugCheckError)
+        launched = dict(ops.launches)
+        out = chunk(data, state)
+        torch.cuda.synchronize()
+        row = {"problem": spec.name, "corrupted": {field: value},
+               "raised": None if err is None else str(err),
+               "launches_before_raise": launched,
+               "clean_chunk_launches": dict(ops.launches),
+               "clean_phases": out.phases.tolist()}
+        log(f"[10] (c) {json.dumps(row)}")
+        res["corrupt"].append(row)
+        ok &= bool(err is not None and match in str(err)
+                   and sum(launched.values()) == 0 and out.phases.is_cuda
+                   and ops.launches["slack_propose"] > 0)
+    return ok
+
+
+def _audit_scheduler(torch, ops, rdev, dev, ctx, res) -> bool:
+    """(d): the scheduler quarantines the request that trips the checks;
+    the other seven solve at ladder level 0."""
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.serve.ft import RequestRejected
+    from repro_torch.serve.scheduler import AsyncOTScheduler
+
+    cfg = SIZES["audit"]
+    rng = np.random.default_rng([ctx["seed"], 11])
+    lo, hi = cfg["sizes"]
+    reqs = []
+    for i in range(cfg["requests"]):
+        m, n = (int(v) for v in rng.integers(lo, hi + 1, size=2))
+        x, y = _points(rng, m), _points(rng, n)
+        nu = mu = None
+        if i % 2:
+            nu = rng.dirichlet(np.ones(m)).astype(np.float32)
+            mu = rng.dirichlet(np.ones(n)).astype(np.float32)
+        if i == cfg["nan_at"]:
+            x[0, 0] = np.nan
+        reqs.append((x, y, nu, mu))
+
+    def run():
+        with AsyncOTScheduler(
+                eps=cfg["eps"], metric="euclidean", linger_ms=20.0,
+                validate=False, device=dev, join_timeout_s=30,
+                policy=DispatchPolicy(mode="compact"),
+                retry_backoff_s=0.001) as sched:
+            t0 = time.monotonic()
+            futs = [sched.submit(x, y, nu, mu, want=("cost", "duals"))
+                    for x, y, nu, mu in reqs]
+            if not sched.flush(timeout=600):
+                raise RuntimeError("the scheduler did not drain in 600 s")
+            return futs, time.monotonic() - t0, sched.stats_dict()
+
+    (futs, wall, stats), lc, sc = _sanitized(torch, ops, rdev, run)
+    ok = True
+    levels, rejected = [], None
+    for i, f in enumerate(futs):
+        exc = f.exception(timeout=0)
+        if i == cfg["nan_at"]:
+            rejected = None if exc is None else str(exc)
+            ok &= isinstance(exc, RequestRejected)
+            continue
+        if exc is not None:
+            log(f"[10] (d) request {i} failed: {exc!r}")
+            ok = False
+            continue
+        sol = f.result(timeout=0)
+        levels.append(sol.stats.ladder_level)
+        ok &= bool(np.isfinite(sol.cost) and sol.dual_feasible()
+                   and not sol.degraded)
+    stats.pop("occupancy")
+    row = {"requests": len(reqs), "wall_s": wall, "rejected": rejected,
+           "ladder_levels": levels, "stats": stats, "launches": lc,
+           "syncs": sc}
+    log(f"[10] (d) {json.dumps(row, default=float)}")
+    res["scheduler"] = row
+    return bool(ok and levels == [0] * (len(reqs) - 1)
+                and stats["quarantined"] == 1 and lc["cost_matrix"] > 0
+                and lc["slack_propose"] > 0 and sc["debug"] > 0)
+
+
+def phase_audit(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The audit layer on the card (see the module docstring, phase 10):
+    (a) the sanitized solves, (b) NaN batches, (c) corrupted chunks, (d)
+    the scheduler's quarantine, (e) ``python -m repro_torch.analysis
+    --strict`` in a child process. Every kernel is loaded before it
+    starts, and none may be built or loaded anew during it."""
+    libs = dict(ops._libs)
+    res = {"card": smi_line(), "solves": [], "nan": [], "corrupt": []}
+    record["phases"]["audit"] = res
+    ok = _audit_solves(torch, ops, rdev, dev, record, ctx, res)
+    launches["audit"] = {k: sum(r["launches"][k] for r in res["solves"])
+                         for k in ops.launches}
+    ok &= _audit_nan(torch, ops, rdev, dev, ctx, res)
+    ok &= _audit_corrupt(torch, ops, dev, ctx, res)
+    ok &= _audit_scheduler(torch, ops, rdev, dev, ctx, res)
+
+    # (e) the static and dynamic passes, as a user runs them
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    env.pop("REPRO_DEBUG_CHECKS", None)
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    cli = {"returncode": out.returncode, "s": time.monotonic() - t0,
+           "stdout": out.stdout.splitlines(),
+           "stderr": out.stderr.splitlines()[-20:]}
+    for line in cli["stdout"]:
+        log(f"[10] (e) {line}")
+    res["cli"] = cli
+    rebuilt = (ops.build_kernels() != 0.0 or ops._libs.keys() != libs.keys()
+               or any(ops._libs[k] is not v for k, v in libs.items()))
+    res["kernels_rebuilt"] = rebuilt
+    log(f"[10] (e) analysis --strict rc {out.returncode} in {cli['s']:.1f} "
+        f"s; kernels rebuilt in this phase: {rebuilt}")
+    ok &= bool(out.returncode == 0
+               and "no unsuppressed findings" in out.stdout
+               and "no kernel rebuilt" in out.stdout and not rebuilt)
     return ok
 
 

@@ -32,6 +32,7 @@ import torch
 
 # the serving stack's one monotonic clock: chunk timing and deadline
 # checks share a time base with the scheduler's spans and budgets
+from ..analysis import debug_checks_enabled
 from ..obs.metrics import now as _now
 from .device import host_numpy
 from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
@@ -177,6 +178,19 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
     return buf
 
 
+def spec_fns(spec, k: int):
+    """``(prologue, init, chunk, conv, epilogue)``: the spec's batched
+    functions as the drivers call them. ``chunk(data, state)`` runs at
+    most ``k`` phases; ``conv(data, state)`` gives ((B,) converged, (B,)
+    phases), which the driver stacks into its one read per chunk.
+    ``analysis.checked.checked_spec_fns`` gives the same family with the
+    sanitizer's checks."""
+    return (spec.prologue, spec.init_state,
+            lambda data, state: spec.run_phases(data, state, k),
+            lambda data, state: (spec.converged(data, state), state.phases),
+            spec.epilogue)
+
+
 def max_chunk_dispatches(phase_cap: np.ndarray, k: int) -> int:
     """Upper bound on k-phase dispatches (phase caps bound every lane)."""
     return -(-int(phase_cap.max(initial=1)) // max(k, 1)) + 2
@@ -213,17 +227,22 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
                 CompactionStats(batch=0, dispatched_batch=0, chunk=k))
     p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
                      **prep_kw)
+    if debug_checks_enabled():
+        # the sanitizer: checked prologue, chunk and epilogue, on the
+        # stepped route (analysis/checked.py); one more read a chunk
+        from ..analysis.checked import checked_spec_fns
+        prologue, init, chunk, conv, epilogue = checked_spec_fns(spec, k)
+    else:
+        prologue, init, chunk, conv, epilogue = spec_fns(spec, k)
     ops = p.ops
-    data, ctx = spec.prologue(ops)
+    data, ctx = prologue(ops)
     ctx = {**ctx, **{kk: ops[kk] for kk in spec.ctx_ops}}
-    state0 = spec.init_state(data, ctx)
+    state0 = init(data, ctx)
     stats = CompactionStats(batch=b, dispatched_batch=p.bp, chunk=k)
-    final = _drive(
-        data, state0, lambda d, s: spec.run_phases(d, s, k),
-        lambda d, s: (spec.converged(d, s), s.phases),
-        max_chunk_dispatches(p.phase_cap, k), stats, deadline=deadline,
-        obs=obs)
-    r = spec.epilogue(ctx, final)
+    final = _drive(data, state0, chunk, conv,
+                   max_chunk_dispatches(p.phase_cap, k), stats,
+                   deadline=deadline, obs=obs)
+    r = epilogue(ctx, final)
     phases = np.asarray(final.phases[:b].cpu(), np.int64)
     stats.phases_needed = int(phases.sum())
     stats.lockstep_slot_phases = b * int(phases.max(initial=0))
@@ -255,3 +274,62 @@ def solve_ot_batched_compacting(c, nu, mu, eps, *, sizes=None, theta=None,
                             sizes=sizes, k=k, guaranteed=guaranteed,
                             keep_state=keep_state, device=device,
                             theta=theta)
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the chunk and converged-mask
+# functions are what the compacting loop re-issues per bucket, so they
+# are what the donation-safety and dtype-drift rules must see.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _tiny_batch(spec_name: str, k: int = 2):
+    """A deterministic (2, 4, 4) prepared batch on the CPU: ``(chunk,
+    conv, data, state)`` for recording dispatches."""
+    spec = ASSIGNMENT if spec_name == "assignment" else OT
+    b, mn = 2, 4
+    c = np.linspace(0.0, 1.0, b * mn * mn, dtype=np.float32)
+    inputs = {"c": c.reshape(b, mn, mn)}
+    if spec_name == "ot":
+        inputs["nu"] = np.full((b, mn), 1.0 / mn, np.float32)
+        inputs["mu"] = np.full((b, mn), 1.0 / mn, np.float32)
+    p = spec.prepare(spec.canonicalize(inputs, "cpu"), 0.25)
+    prologue, init, chunk, conv, _ = spec_fns(spec, k)
+    data, ctx = prologue(p.ops)
+    state = init(data, ctx)
+    return chunk, conv, data, state
+
+
+def _trace_chunk(spec_name: str):
+    chunk, _, data, state = _tiny_batch(spec_name)
+    return _audit.trace_entry(
+        name=f"core.compaction.chunk[{spec_name}]",
+        fn=chunk,
+        args={"data": data, "state": state},
+        donated={"state"},
+        tags={"chunk-dispatch", spec_name},
+        source=__name__,
+    )
+
+
+def _trace_conv(spec_name: str):
+    _, conv, data, state = _tiny_batch(spec_name)
+    return _audit.trace_entry(
+        name=f"core.compaction.conv[{spec_name}]",
+        fn=conv,
+        args={"data": data, "state": state},
+        tags={"conv-dispatch", spec_name},
+        source=__name__,
+    )
+
+
+_audit.register("core.compaction.chunk[assignment]",
+                lambda: _trace_chunk("assignment"), source=__name__)
+_audit.register("core.compaction.chunk[ot]",
+                lambda: _trace_chunk("ot"), source=__name__)
+_audit.register("core.compaction.conv[assignment]",
+                lambda: _trace_conv("assignment"), source=__name__)
+_audit.register("core.compaction.conv[ot]",
+                lambda: _trace_conv("ot"), source=__name__)

@@ -9,8 +9,9 @@ raises, and only an explicit ``device="cpu"`` runs on the CPU.
 
 Each device->host read that steers a Python loop goes through
 :func:`host_flags` / :func:`host_numpy`, which count it under a kind
-("round", "chunk", "sinkhorn") in ``sync_counts`` so a run can report how
-often it waited on the device. The counts are updated under a lock: the
+("round", "chunk", "sinkhorn", and "debug" for the sanitizer's checks of
+``analysis/checked.py``) in ``sync_counts`` so a run can report how often
+it waited on the device. The counts are updated under a lock: the
 shards of a mesh dispatch run from worker threads of one process.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import threading
 import numpy as np
 import torch
 
-sync_counts = {"round": 0, "chunk": 0, "sinkhorn": 0}
+sync_counts = {"round": 0, "chunk": 0, "sinkhorn": 0, "debug": 0}
 _sync_lock = threading.Lock()
 # what device=None means; set_platform("cpu") pins it to "cpu"
 _default = "cuda"

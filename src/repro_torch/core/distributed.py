@@ -58,8 +58,9 @@ within-instance (row, col, phase, round)). Under matrix placement each
 instance solves at its own mesh-divisible padded shape: the integer state
 is bit-equal, and the float epilogue may differ by reassociation.
 
-The ``repro.analysis`` registration of the mesh chunk waits for the
-audit layer (ROADMAP.md Queue 1 item 12).
+The sanitizer (``repro_torch.analysis.checked``) applies to the
+single-device compacting driver only, as in the reference: a mesh
+dispatch stays plain under ``REPRO_DEBUG_CHECKS=1``.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ from .compaction import (
     _gather,
     max_chunk_dispatches,
     solve_compacting,
+    spec_fns,
 )
 from .device import host_numpy
 from .problem import (
@@ -242,6 +244,15 @@ def _cat(parts, dev0):
                             for f in range(len(parts[0]))))
 
 
+def _shard_chunk(run_fn, conv_fn, part):
+    """One shard's chunk: its new state and its stacked ((b,) converged,
+    (b,) phases), which the driver gathers into its one read."""
+    d, s = part
+    s = run_fn(d, s)
+    conv, ph = conv_fn(d, s)
+    return s, torch.stack([conv.to(torch.int32), ph.to(torch.int32)])
+
+
 def _drive_distributed(data, state, run_fn, conv_fn, max_chunks: int,
                        stats: DistributedStats, devices, *,
                        share_streams: bool = False,
@@ -262,10 +273,7 @@ def _drive_distributed(data, state, run_fn, conv_fn, max_chunks: int,
     parts = None
 
     def chunk(part):
-        d, s = part
-        s = run_fn(d, s)
-        conv, ph = conv_fn(d, s)
-        return s, torch.stack([conv.to(torch.int32), ph.to(torch.int32)])
+        return _shard_chunk(run_fn, conv_fn, part)
 
     def shard_out():
         # the driver's set-up of these lanes must be done before the
@@ -418,9 +426,9 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
     stats = DistributedStats(batch=b, dispatched_batch=p.bp, chunk=k,
                              devices=d, batch_axis=batch_axis,
                              placement="batch")
+    _, _, run_fn, conv_fn, _ = spec_fns(spec, k)
     final = _drive_distributed(
-        data, state0, lambda dd, s: spec.run_phases(dd, s, k),
-        lambda dd, s: (spec.converged(dd, s), s.phases),
+        data, state0, run_fn, conv_fn,
         max_chunk_dispatches(p.phase_cap, k), stats, devices,
         share_streams=bool(getattr(spec, "fused", False)),
         deadline=deadline, obs=obs)
@@ -506,3 +514,45 @@ def solve_ot_distributed(c, nu, mu, eps, mesh: Optional[Mesh] = None, *,
                       sizes=sizes, k=k, guaranteed=guaranteed,
                       batch_axis=batch_axis, placement=placement,
                       theta=theta)
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the mesh chunk dispatch (what
+# `_drive_distributed` re-issues per bucket while sharded), recorded on a
+# logical CPU mesh whose two devices are the one CPU.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _trace_mesh_chunk(spec_name: str):
+    from ..launch.mesh import make_small_mesh
+    from .compaction import _tiny_batch
+
+    devices = _axis_devices(make_small_mesh((2,), ("data",), devices="cpu"),
+                            "data")
+    chunk, conv, data, state = _tiny_batch(spec_name)
+    bb = int(state.phases.shape[0])
+
+    def mesh_chunk(data, state):
+        # the shards run in the recording thread: a dispatch mode sees one
+        # thread's ops, and _Shards' workers would escape it
+        outs = [_shard_chunk(chunk, conv, part)
+                for part in zip(_split(data, devices, bb),
+                                _split(state, devices, bb))]
+        return _cat([s for s, _ in outs], devices[0])
+
+    return _audit.trace_entry(
+        name=f"core.distributed.mesh_chunk[{spec_name}]",
+        fn=mesh_chunk,
+        args={"data": data, "state": state},
+        donated={"state"},
+        tags={"mesh-dispatch", spec_name},
+        source=__name__,
+    )
+
+
+_audit.register("core.distributed.mesh_chunk[assignment]",
+                lambda: _trace_mesh_chunk("assignment"), source=__name__)
+_audit.register("core.distributed.mesh_chunk[ot]",
+                lambda: _trace_mesh_chunk("ot"), source=__name__)

@@ -731,3 +731,86 @@ def fused_variant(spec):
     if alt is not None:
         return alt
     raise ValueError(f"no fused variant registered for spec {spec!r}")
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the prologue -> init_state chains are
+# where the reference's shared-buffer bug lived: the state the chunks
+# update must share no storage with anything the epilogue (or the driver)
+# still reads. The "state-init-chain" tag makes the donation-safety rule
+# compare their storages.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _i32(v):
+    return torch.tensor([v], dtype=torch.int32)
+
+
+def _f32(v):
+    return torch.tensor([v], dtype=torch.float32)
+
+
+def _trace_assignment_state_chain():
+    m = n = 8
+
+    def chain(c, eps, m_valid, n_valid):
+        data, ctx = ASSIGNMENT.prologue({
+            "c": c, "eps": eps, "m_valid": m_valid, "n_valid": n_valid,
+            "threshold": _i32(0), "phase_cap": _i32(8)})
+        state = ASSIGNMENT.init_state(data, ctx)
+        return {"state": state,
+                "retained": {"c_int": data["c_int"], "cm": ctx["cm"],
+                             "scale": ctx["scale"]}}
+
+    return _audit.trace_entry(
+        name="core.problem.assignment_state_chain",
+        fn=chain,
+        args={
+            "c": torch.zeros((1, m, n), dtype=torch.float32),
+            "eps": _f32(0.1),
+            "m_valid": _i32(m),
+            "n_valid": _i32(n),
+        },
+        retained={"c"},
+        must_trace={"eps", "m_valid", "n_valid"},
+        tags={"state-init-chain", "assignment"},
+        source=__name__,
+    )
+
+
+def _trace_ot_state_chain():
+    m = n = 8
+
+    def chain(c, nu, mu, theta, eps):
+        data, ctx = OT.prologue({
+            "c": c, "nu": nu, "mu": mu, "theta": theta, "eps": eps,
+            "threshold": _i32(0), "phase_cap": _i32(8)})
+        state = OT.init_state(data, ctx)
+        return {"state": state,
+                "retained": {"c_int": data["c_int"],
+                             "s_int": ctx["s_int"], "d_int": ctx["d_int"],
+                             "scale": ctx["scale"]}}
+
+    return _audit.trace_entry(
+        name="core.problem.ot_state_chain",
+        fn=chain,
+        args={
+            "c": torch.zeros((1, m, n), dtype=torch.float32),
+            "nu": torch.full((1, m), 1.0 / m, dtype=torch.float32),
+            "mu": torch.full((1, n), 1.0 / n, dtype=torch.float32),
+            "theta": _f32(4.0 * m / 0.1),
+            "eps": _f32(0.1),
+        },
+        retained={"c", "nu", "mu"},
+        must_trace={"eps", "theta"},
+        tags={"state-init-chain", "ot"},
+        source=__name__,
+    )
+
+
+_audit.register("core.problem.assignment_state_chain",
+                _trace_assignment_state_chain, source=__name__)
+_audit.register("core.problem.ot_state_chain", _trace_ot_state_chain,
+                source=__name__)

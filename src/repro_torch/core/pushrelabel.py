@@ -293,3 +293,40 @@ def solve_assignment(c, eps: float, *, guaranteed: bool = False,
         torch.tensor([int(eps * m)], dtype=torch.int32, device=dev),
         torch.tensor([cap], dtype=torch.int32, device=dev), cap + 1)
     return assignment_epilogue(cm, scale, state, eps_t)
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the stepped core is a solver entry
+# point in its own right (lockstep and the sharded solve call it
+# directly); its per-lane schedule operands must arrive as tensors.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _trace_assignment_chunk():
+    m = n = 8
+
+    def vec(v):
+        return torch.tensor([v], dtype=torch.int32)
+    return _audit.trace_entry(
+        name="core.pushrelabel.run_assignment_phases",
+        fn=lambda c_int, state, threshold, phase_cap, m_valid:
+            run_assignment_phases(c_int, state, threshold, phase_cap, 4,
+                                  m_valid=m_valid),
+        args={
+            "c_int": torch.zeros((1, m, n), dtype=torch.int32),
+            "state": init_assignment_state(1, m, n, "cpu"),
+            "threshold": vec(0),
+            "phase_cap": vec(8),
+            "m_valid": vec(m),
+        },
+        donated={"state"},
+        must_trace={"threshold", "phase_cap", "m_valid"},
+        tags={"stepped-core", "assignment"},
+        source=__name__,
+    )
+
+
+_audit.register("core.pushrelabel.run_assignment_phases",
+                _trace_assignment_chunk, source=__name__)

@@ -115,3 +115,40 @@ def sinkhorn_marginal_tolerance(eps, mass: float = 1.0) -> float:
     target: eps/8 * total mass (the AWR stopping rule), handed to
     ``sinkhorn`` as its runtime ``tol`` operand."""
     return float(np.float64(eps) / 8.0 * np.float64(mass))
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the baseline solver. Its stopping
+# tolerance must arrive as a tensor (derived on the host in float64 by
+# sinkhorn_marginal_tolerance): a Python float would be rounded through
+# the f32 comparison in the arithmetic's dtype instead.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _trace_sinkhorn():
+    n = 8
+
+    def run(c, nu, mu, tol):
+        r = sinkhorn(c, nu, mu, reg=0.05, max_iters=16, tol=tol,
+                     device="cpu")
+        return {"plan": r.plan, "cost": r.cost, "f": r.f, "g": r.g,
+                "iters": r.iters, "marginal_err": r.marginal_err}
+
+    return _audit.trace_entry(
+        name="core.sinkhorn.sinkhorn",
+        fn=run,
+        args={
+            "c": torch.zeros((n, n), dtype=torch.float32),
+            "nu": torch.full((n,), 1.0 / n, dtype=torch.float32),
+            "mu": torch.full((n,), 1.0 / n, dtype=torch.float32),
+            "tol": torch.tensor(1e-6, dtype=torch.float32),
+        },
+        must_trace={"tol"},
+        tags={"sinkhorn", "baseline"},
+        source=__name__,
+    )
+
+
+_audit.register("core.sinkhorn.sinkhorn", _trace_sinkhorn, source=__name__)

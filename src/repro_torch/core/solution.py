@@ -124,12 +124,14 @@ def _block_mask(c, m_valid, n_valid, col_live=None):
 def _masked_max(c, m_valid, n_valid):
     """(B,) max cost over each instance's valid block (the solver's
     rescaling factor)."""
+    # a zero of c's dtype, not a Python 0.0 whose dtype follows the
+    # operand's (dtype-drift audit, weak-literal)
     return torch.where(_block_mask(c, m_valid, n_valid), c,
-                       0.0).amax(dim=(1, 2))
+                       c.new_zeros(())).amax(dim=(1, 2))
 
 
 def _masked_sum(v, valid):
-    return torch.where(_valid(v, valid), v, 0.0).sum(dim=1)
+    return torch.where(_valid(v, valid), v, v.new_zeros(())).sum(dim=1)
 
 
 def _dual_obj_assignment(y_b, y_a, m_valid, n_valid):
@@ -145,7 +147,14 @@ def _feasibility_margin(c, y_b, y_a, m_valid, n_valid, col_live):
     (eps-feasibility holds when this is <= eps * scale up to f32 slop)."""
     s = y_b[:, :, None] + y_a[:, None, :] - c
     mask = _block_mask(c, m_valid, n_valid, col_live)
-    return torch.where(mask, s, float("-inf")).amax(dim=(1, 2))
+    return torch.where(mask, s, s.new_full((), float("-inf"))).amax(
+        dim=(1, 2))
+
+
+def _count_nnz(plan):
+    """(B,) int32 support size of each lane of a (B, M, N) plan."""
+    return (plan.reshape(plan.shape[0], -1) != 0).sum(dim=1,
+                                                      dtype=torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -207,9 +216,8 @@ def sparse_from_dense_device(plan: torch.Tensor, batch: int
     triplets are copied to the host."""
     b, m, n = plan.shape
     flat = plan.reshape(b, m * n)
-    nz = flat != 0
-    nnz_t = nz.sum(dim=1, dtype=torch.int32)
-    hits = torch.nonzero(nz)                   # (total, 2), lane-major
+    nnz_t = _count_nnz(plan)
+    hits = torch.nonzero(flat)                 # (total, 2), lane-major
     nnz = nnz_t.cpu().numpy()
     k = min(pow2_at_least(int(nnz[:batch].max(initial=1))), m * n)
     lane, pos_flat = hits[:, 0], hits[:, 1]
@@ -574,3 +582,54 @@ class Solution:
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return (f"Solution({self.spec_name}, shape={self.shape}, "
                 f"eps={self.eps}, mode={self.stats.mode!r})")
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the certificate reductions. The
+# "certificate" tag turns on the strict dtype rules (no Python float
+# literals, f32 sums reported): a certificate computed in a drifted dtype
+# is the device-threshold bug applied to the paper's additive-gap bound
+# instead of the solver loop.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _certificate_specs():
+    b, m, n = 2, 4, 4
+    c = torch.zeros((b, m, n), dtype=torch.float32)
+    y_b = torch.zeros((b, m), dtype=torch.float32)
+    y_a = torch.zeros((b, n), dtype=torch.float32)
+    nu = torch.full((b, m), 0.25, dtype=torch.float32)
+    mu = torch.full((b, n), 0.25, dtype=torch.float32)
+    mv = torch.full((b,), m, dtype=torch.int32)
+    nv = torch.full((b,), n, dtype=torch.int32)
+    live = torch.ones((b, n), dtype=torch.bool)
+    plan = torch.zeros((b, m, n), dtype=torch.float32)
+    mk = lambda name, fn, args: _audit.EntrySpec(  # noqa: E731
+        name=name,
+        build=lambda: _audit.trace_entry(
+            name=name, fn=fn, args=args, tags={"certificate"},
+            source=__name__),
+        source=__name__,
+    )
+    return [
+        mk("core.solution._masked_max", _masked_max,
+           {"c": c, "m_valid": mv, "n_valid": nv}),
+        mk("core.solution._dual_obj_assignment", _dual_obj_assignment,
+           {"y_b": y_b, "y_a": y_a, "m_valid": mv, "n_valid": nv}),
+        mk("core.solution._dual_obj_ot", _dual_obj_ot,
+           {"y_b": y_b, "y_a": y_a, "nu": nu, "mu": mu,
+            "m_valid": mv, "n_valid": nv}),
+        mk("core.solution._feasibility_margin", _feasibility_margin,
+           {"c": c, "y_b": y_b, "y_a": y_a, "m_valid": mv, "n_valid": nv,
+            "col_live": live}),
+        mk("core.solution._masked_sum", _masked_sum,
+           {"v": y_b, "valid": mv}),
+        mk("core.solution._count_nnz", _count_nnz, {"plan": plan}),
+    ]
+
+
+for _es in _certificate_specs():
+    _audit.register(_es.name, _es.build, source=_es.source)
+del _es

@@ -327,3 +327,61 @@ def solve_ot(c, nu, mu, eps: float, *, theta=None, guaranteed: bool = False,
         torch.tensor([cap], dtype=torch.int32, device=dev), cap + 1,
         nb + na + 2)
     return ot_epilogue(c, nu, mu, theta_t, eps_t, scale, s_int, d_int, state)
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the OT stepped core (its init chain,
+# where the shared-buffer bug lived, is registered from core/problem.py),
+# and the one-shot solve's threshold=None fallback, the on-device f32
+# threshold, under the "threshold" tag so the dtype-drift rule keeps it
+# visible as an explicit baseline entry.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _trace_ot_chunk():
+    m = n = 8
+
+    def vec(v):
+        return torch.tensor([v], dtype=torch.int32)
+    return _audit.trace_entry(
+        name="core.transport.run_ot_phases",
+        fn=lambda c_int, state, threshold, phase_cap:
+            run_ot_phases(c_int, state, threshold, phase_cap, 4,
+                          max_rounds=int(m + n + 2)),
+        args={
+            "c_int": torch.zeros((1, m, n), dtype=torch.int32),
+            "state": init_ot_state(torch.ones((1, m), dtype=torch.int32),
+                                   torch.ones((1, n), dtype=torch.int32)),
+            "threshold": vec(0),
+            "phase_cap": vec(8),
+        },
+        donated={"state"},
+        must_trace={"threshold", "phase_cap"},
+        tags={"stepped-core", "ot"},
+        source=__name__,
+    )
+
+
+def _trace_solve_ot_int_fallback():
+    m = n = 8
+    return _audit.trace_entry(
+        name="core.transport.solve_ot_int[threshold=None]",
+        fn=lambda c_int, s_int, d_int:
+            solve_ot_int(c_int, s_int, d_int, 0.25, 8, max_rounds=18,
+                         threshold=None),
+        args={
+            "c_int": torch.zeros((m, n), dtype=torch.int32),
+            "s_int": torch.ones((m,), dtype=torch.int32),
+            "d_int": torch.ones((n,), dtype=torch.int32),
+        },
+        tags={"threshold", "ot"},
+        source=__name__,
+    )
+
+
+_audit.register("core.transport.run_ot_phases", _trace_ot_chunk,
+                source=__name__)
+_audit.register("core.transport.solve_ot_int[threshold=None]",
+                _trace_solve_ot_int_fallback, source=__name__)

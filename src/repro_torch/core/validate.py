@@ -106,8 +106,10 @@ def _admission_assignment(c, m_valid, n_valid) -> torch.Tensor:
                        OK).to(torch.int32)
 
 
-def _admission_ot(c, nu, mu, m_valid, n_valid, tol: float) -> torch.Tensor:
-    """(B,) int32 bitmask codes for OT instances. The imbalance test is
+def _admission_ot(c, nu, mu, m_valid, n_valid, tol) -> torch.Tensor:
+    """(B,) int32 bitmask codes for OT instances. ``tol`` is a () f32
+    tensor on ``c``'s device, an operand like the reference's traced one
+    (one code path serves every tolerance); the imbalance test is
     relative to ``max(total mass, 1)``, in fp32 as the reference's."""
     rok, cok = _lane_masks(c, m_valid, n_valid)
     bad_c = _bad_cost(c, rok, cok)
@@ -117,8 +119,7 @@ def _admission_ot(c, nu, mu, m_valid, n_valid, tol: float) -> torch.Tensor:
     s_mu = torch.where(cok, mu, 0.0).sum(dim=1)
     scale = torch.maximum(torch.maximum(s_nu, s_mu),
                           torch.ones_like(s_nu))
-    tol_t = torch.tensor(tol, dtype=torch.float32, device=c.device)
-    imbalanced = (s_nu - s_mu).abs() > tol_t * scale
+    imbalanced = (s_nu - s_mu).abs() > tol * scale
     return (torch.where(bad_c, NONFINITE_COST, OK)
             | torch.where(bad_nu | bad_mu, NEGATIVE_MASS, OK)
             | torch.where(imbalanced, MASS_IMBALANCE, OK)).to(torch.int32)
@@ -143,7 +144,8 @@ def admission_codes(inputs: Dict[str, Any], *,
     if inputs.get("nu") is not None:
         codes = _admission_ot(c, as_f32(inputs["nu"], dev),
                               as_f32(inputs["mu"], dev), m_valid, n_valid,
-                              float(tol))
+                              torch.tensor(float(tol), dtype=torch.float32,
+                                           device=dev))
     else:
         codes = _admission_assignment(c, m_valid, n_valid)
     return codes.cpu().numpy()
@@ -165,3 +167,42 @@ def check_admission(inputs: Dict[str, Any], *,
             f"{int(bad.size)}/{int(codes.size)} lane(s)",
             int(codes[bad[0]]), reason=shown + more)
     return codes
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the admission reductions run once per
+# collated bucket, so they carry the solver chunks' contracts: the
+# tolerance is an operand, not a literal, and the int32 codes pick up no
+# float drift.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _admission_specs():
+    b, m, n = 2, 4, 4
+    c = torch.zeros((b, m, n), dtype=torch.float32)
+    nu = torch.full((b, m), 0.25, dtype=torch.float32)
+    mu = torch.full((b, n), 0.25, dtype=torch.float32)
+    mv = torch.full((b,), m, dtype=torch.int32)
+    nv = torch.full((b,), n, dtype=torch.int32)
+    mk = lambda name, fn, args, must: _audit.EntrySpec(  # noqa: E731
+        name=name,
+        build=lambda: _audit.trace_entry(
+            name=name, fn=fn, args=args, must_trace=must,
+            tags={"admission"}, source=__name__),
+        source=__name__,
+    )
+    return [
+        mk("core.validate.admission[assignment]", _admission_assignment,
+           {"c": c, "m_valid": mv, "n_valid": nv}, ()),
+        mk("core.validate.admission[ot]", _admission_ot,
+           {"c": c, "nu": nu, "mu": mu, "m_valid": mv, "n_valid": nv,
+            "tol": torch.tensor(DEFAULT_TOL, dtype=torch.float32)},
+           ("tol",)),
+    ]
+
+
+for _es in _admission_specs():
+    _audit.register(_es.name, _es.build, source=_es.source)
+del _es

@@ -411,3 +411,129 @@ def sinkhorn_row_update(c, g, log_nu, reg, *, active_b=None, f=None):
                 0 if f is None else f.data_ptr(), out.data_ptr(), b, m, n,
                 vec, _stream(dev))
     return out
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the kernel wrappers. Recorded on the
+# CPU, where each runs its kernel's plain version (a launch through ctypes
+# is invisible to the recorder); their scalar operands (salt, reg, the
+# per-lane schedule) must arrive as tensors.
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _vec(v, dtype=torch.int32):
+    return torch.tensor([v], dtype=dtype)
+
+
+def _trace_slack_propose():
+    m = n = 8
+    return _audit.trace_entry(
+        name="kernels.ops.slack_propose",
+        fn=lambda c_int, y_b, y_a, avail_a, salt:
+            slack_propose(c_int, y_b, y_a, avail_a, salt),
+        args={
+            "c_int": torch.zeros((m, n), dtype=torch.int32),
+            "y_b": torch.zeros((m,), dtype=torch.int32),
+            "y_a": torch.zeros((n,), dtype=torch.int32),
+            "avail_a": torch.ones((n,), dtype=torch.bool),
+            "salt": torch.tensor(0, dtype=torch.int32),
+        },
+        must_trace={"salt"},
+        tags={"kernel", "assignment"},
+        source=__name__,
+    )
+
+
+def _trace_cost_matrix(batched: bool):
+    m, n, d = 128, 128, 32
+    if batched:
+        x = torch.zeros((2, m, d), dtype=torch.float32)
+        y = torch.zeros((2, n, d), dtype=torch.float32)
+        fn, name = cost_matrix_batched, "kernels.ops.cost_matrix_batched"
+    else:
+        x = torch.zeros((m, d), dtype=torch.float32)
+        y = torch.zeros((n, d), dtype=torch.float32)
+        fn, name = cost_matrix, "kernels.ops.cost_matrix"
+    return _audit.trace_entry(
+        name=name, fn=lambda x, y: fn(x, y), args={"x": x, "y": y},
+        tags={"kernel"}, source=__name__,
+    )
+
+
+def _trace_sinkhorn_row_update():
+    m, n = 128, 128
+    return _audit.trace_entry(
+        name="kernels.ops.sinkhorn_row_update",
+        fn=lambda c, g, log_nu, reg: sinkhorn_row_update(c, g, log_nu, reg),
+        args={
+            "c": torch.zeros((1, m, n), dtype=torch.float32),
+            "g": torch.zeros((1, n), dtype=torch.float32),
+            "log_nu": torch.zeros((1, m), dtype=torch.float32),
+            "reg": _vec(0.05, torch.float32),
+        },
+        must_trace={"reg"},
+        tags={"kernel", "sinkhorn"},
+        source=__name__,
+    )
+
+
+def _trace_fused_assignment():
+    from ..core.pushrelabel import init_assignment_state
+
+    m = n = 8
+    return _audit.trace_entry(
+        name="kernels.ops.fused_run_assignment_phases",
+        fn=lambda c_int, state, threshold, phase_cap, m_valid:
+            fused_run_assignment_phases(c_int, state, threshold, phase_cap,
+                                        4, m_valid=m_valid),
+        args={
+            "c_int": torch.zeros((1, m, n), dtype=torch.int32),
+            "state": init_assignment_state(1, m, n, "cpu"),
+            "threshold": _vec(0),
+            "phase_cap": _vec(8),
+            "m_valid": _vec(m),
+        },
+        donated={"state"},
+        must_trace={"threshold", "phase_cap", "m_valid"},
+        tags={"kernel", "stepped-core", "assignment", "fused"},
+        source=__name__,
+    )
+
+
+def _trace_fused_ot():
+    from ..core.transport import init_ot_state
+
+    m = n = 8
+    return _audit.trace_entry(
+        name="kernels.ops.fused_run_ot_phases",
+        fn=lambda c_int, state, threshold, phase_cap:
+            fused_run_ot_phases(c_int, state, threshold, phase_cap, 4,
+                                max_rounds=int(m + n + 2)),
+        args={
+            "c_int": torch.zeros((1, m, n), dtype=torch.int32),
+            "state": init_ot_state(torch.ones((1, m), dtype=torch.int32),
+                                   torch.ones((1, n), dtype=torch.int32)),
+            "threshold": _vec(0),
+            "phase_cap": _vec(8),
+        },
+        donated={"state"},
+        must_trace={"threshold", "phase_cap"},
+        tags={"kernel", "stepped-core", "ot", "fused"},
+        source=__name__,
+    )
+
+
+_audit.register("kernels.ops.slack_propose", _trace_slack_propose,
+                source=__name__)
+_audit.register("kernels.ops.cost_matrix",
+                lambda: _trace_cost_matrix(False), source=__name__)
+_audit.register("kernels.ops.cost_matrix_batched",
+                lambda: _trace_cost_matrix(True), source=__name__)
+_audit.register("kernels.ops.sinkhorn_row_update", _trace_sinkhorn_row_update,
+                source=__name__)
+_audit.register("kernels.ops.fused_run_assignment_phases",
+                _trace_fused_assignment, source=__name__)
+_audit.register("kernels.ops.fused_run_ot_phases", _trace_fused_ot,
+                source=__name__)

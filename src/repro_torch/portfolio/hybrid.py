@@ -182,3 +182,71 @@ def dispatch_hybrid(inputs, eps, *, sizes=None, policy=None,
     if stats is not None:
         stats.dispatches += int(st1.dispatches)
     return r, stats
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the warm-start state chain (the
+# seeded y_b must be a fresh buffer, not the retained y_b0 operand) and
+# the dual rounding itself (eps must arrive as a tensor; its integer
+# clamps keep the precision rules clean).
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _trace_round_duals():
+    b, m, n = 2, 4, 4
+    return _audit.trace_entry(
+        name="portfolio.hybrid.round_duals",
+        fn=lambda c, mu, f, g, eps: {"y_b0": round_duals(c, mu, f, g,
+                                                         eps)},
+        args={
+            "c": torch.linspace(0.0, 1.0, b * m * n).reshape(b, m, n),
+            "mu": torch.full((b, n), 1.0 / n, dtype=torch.float32),
+            "f": torch.zeros((b, m), dtype=torch.float32),
+            "g": torch.zeros((b, n), dtype=torch.float32),
+            "eps": torch.full((b,), 0.1, dtype=torch.float32),
+        },
+        must_trace={"eps"},
+        tags={"hybrid"},
+        source=__name__,
+    )
+
+
+def _trace_warm_state_chain():
+    m = n = 8
+
+    def chain(c, nu, mu, theta, eps, y_b0):
+        data, ctx = WARM_OT.prologue({
+            "c": c, "nu": nu, "mu": mu, "theta": theta, "eps": eps,
+            "threshold": torch.tensor([0], dtype=torch.int32),
+            "phase_cap": torch.tensor([64], dtype=torch.int32)})
+        ctx = {**ctx, "y_b0": y_b0}
+        state = WARM_OT.init_state(data, ctx)
+        return {"state": state,
+                "retained": {"c_int": data["c_int"],
+                             "s_int": ctx["s_int"],
+                             "d_int": ctx["d_int"],
+                             "y_b0": y_b0}}
+
+    return _audit.trace_entry(
+        name="portfolio.hybrid.warm_state_chain",
+        fn=chain,
+        args={
+            "c": torch.zeros((1, m, n), dtype=torch.float32),
+            "nu": torch.full((1, m), 1.0 / m, dtype=torch.float32),
+            "mu": torch.full((1, n), 1.0 / n, dtype=torch.float32),
+            "theta": torch.tensor([320.0], dtype=torch.float32),
+            "eps": torch.tensor([0.1], dtype=torch.float32),
+            "y_b0": torch.ones((1, m), dtype=torch.int32),
+        },
+        retained={"c", "nu", "mu", "y_b0"},
+        tags={"state-init-chain", "hybrid"},
+        source=__name__,
+    )
+
+
+_audit.register("portfolio.hybrid.round_duals", _trace_round_duals,
+                source=__name__)
+_audit.register("portfolio.hybrid.warm_state_chain",
+                _trace_warm_state_chain, source=__name__)

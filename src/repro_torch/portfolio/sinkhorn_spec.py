@@ -372,3 +372,128 @@ KernelSinkhornSpec.stepped = SINKHORN
 # fused_variant() hook (core/problem.py): DispatchPolicy(fused=True)
 # resolves SINKHORN -> SINKHORN_KERNEL without core importing portfolio
 SinkhornSpec.fused_spec = SINKHORN_KERNEL
+
+
+# --------------------------------------------------------------------------
+# repro_torch.analysis registration: the Sinkhorn spec's stepped core,
+# chunk and converged-mask dispatches and its state-init chain, as for
+# the push-relabel specs (core/compaction.py, core/problem.py).
+# --------------------------------------------------------------------------
+
+from ..analysis import registry as _audit  # noqa: E402
+
+
+def _tiny_sinkhorn_batch():
+    """A deterministic (2, 4, 4) prepared batch on the CPU: ``(chunk,
+    conv, data, state)`` for recording dispatches."""
+    from ..core.compaction import spec_fns
+
+    b, mn = 2, 4
+    c = np.linspace(0.0, 1.0, b * mn * mn, dtype=np.float32)
+    inputs = {"c": c.reshape(b, mn, mn),
+              "nu": np.full((b, mn), 1.0 / mn, np.float32),
+              "mu": np.full((b, mn), 1.0 / mn, np.float32)}
+    p = SINKHORN.prepare(SINKHORN.canonicalize(inputs, "cpu"), 0.25)
+    prologue, init, chunk, conv, _ = spec_fns(SINKHORN, 2)
+    data, ctx = prologue(p.ops)
+    state = init(data, ctx)
+    return chunk, conv, data, state
+
+
+def _trace_sinkhorn_chunk():
+    chunk, _, data, state = _tiny_sinkhorn_batch()
+    return _audit.trace_entry(
+        name="portfolio.sinkhorn.chunk[sinkhorn]",
+        fn=chunk,
+        args={"data": data, "state": state},
+        donated={"state"},
+        tags={"chunk-dispatch", "sinkhorn"},
+        source=__name__,
+    )
+
+
+def _trace_sinkhorn_conv():
+    _, conv, data, state = _tiny_sinkhorn_batch()
+    return _audit.trace_entry(
+        name="portfolio.sinkhorn.conv[sinkhorn]",
+        fn=conv,
+        args={"data": data, "state": state},
+        tags={"conv-dispatch", "sinkhorn"},
+        source=__name__,
+    )
+
+
+def _trace_sinkhorn_state_chain():
+    m = n = 8
+
+    def chain(c, nu, mu, reg, tol):
+        data, ctx = SINKHORN.prologue({
+            "c": c, "nu": nu, "mu": mu, "reg": reg, "tol": tol,
+            "phase_cap": torch.tensor([64], dtype=torch.int32)})
+        state = SINKHORN.init_state(data, ctx)
+        return {"state": state,
+                "retained": {"c_hat": data["c_hat"],
+                             "log_nu": data["log_nu"],
+                             "nu_hat": data["nu_hat"],
+                             "scale": ctx["scale"]}}
+
+    return _audit.trace_entry(
+        name="portfolio.sinkhorn.state_chain",
+        fn=chain,
+        args={
+            "c": torch.zeros((1, m, n), dtype=torch.float32),
+            "nu": torch.full((1, m), 1.0 / m, dtype=torch.float32),
+            "mu": torch.full((1, n), 1.0 / n, dtype=torch.float32),
+            "reg": torch.tensor([0.02], dtype=torch.float32),
+            "tol": torch.tensor([0.01], dtype=torch.float32),
+        },
+        retained={"c", "nu", "mu"},
+        tags={"state-init-chain", "sinkhorn"},
+        source=__name__,
+    )
+
+
+def _trace_run_phases():
+    """The stepped core itself: the host-f64 schedule (reg / tol /
+    phase_cap) must arrive as tensors."""
+    m = n = 8
+    state = SinkhornState(
+        f=torch.zeros((1, m), dtype=torch.float32),
+        g=torch.zeros((1, n), dtype=torch.float32),
+        err=torch.full((1,), float("inf"), dtype=torch.float32),
+        phases=torch.zeros((1,), dtype=torch.int32))
+
+    def run(c_hat, log_nu, log_mu, nu_hat, reg, tol, phase_cap, state):
+        return run_sinkhorn_phases(c_hat, log_nu, log_mu, nu_hat, reg,
+                                   tol, phase_cap, state, 3)
+
+    return _audit.trace_entry(
+        name="portfolio.sinkhorn.run_sinkhorn_phases",
+        fn=run,
+        args={
+            "c_hat": torch.zeros((1, m, n), dtype=torch.float32),
+            "log_nu": torch.full((1, m), -float(np.log(m)),
+                                 dtype=torch.float32),
+            "log_mu": torch.full((1, n), -float(np.log(n)),
+                                 dtype=torch.float32),
+            "nu_hat": torch.full((1, m), 1.0 / m, dtype=torch.float32),
+            "reg": torch.tensor([0.02], dtype=torch.float32),
+            "tol": torch.tensor([0.01], dtype=torch.float32),
+            "phase_cap": torch.tensor([64], dtype=torch.int32),
+            "state": state,
+        },
+        donated={"state"},
+        must_trace={"reg", "tol", "phase_cap"},
+        tags={"stepped-core", "sinkhorn"},
+        source=__name__,
+    )
+
+
+_audit.register("portfolio.sinkhorn.run_sinkhorn_phases",
+                _trace_run_phases, source=__name__)
+_audit.register("portfolio.sinkhorn.chunk[sinkhorn]",
+                _trace_sinkhorn_chunk, source=__name__)
+_audit.register("portfolio.sinkhorn.conv[sinkhorn]",
+                _trace_sinkhorn_conv, source=__name__)
+_audit.register("portfolio.sinkhorn.state_chain",
+                _trace_sinkhorn_state_chain, source=__name__)

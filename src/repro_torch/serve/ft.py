@@ -7,10 +7,10 @@ Port of ``repro.serve.ft``. Three concerns live here so ``OTService`` and
     "provide both nu and mu" rule, naming the failing request/tenant);
   * failure classification (:func:`is_transient` against
     :func:`is_poison`): a transient failure (device out of memory,
-    injected chaos) is worth retrying, while poison (a
-    ``FloatingPointError``, a request tagged ``poisoned_instance``) is a
-    property of the DATA: retrying reproduces it, so the right move is
-    bisection and quarantine;
+    injected chaos) is worth retrying, while poison (a check of the
+    sanitizer failing, a ``FloatingPointError``, a request tagged
+    ``poisoned_instance``) is a property of the DATA: retrying
+    reproduces it, so the right move is bisection and quarantine;
   * the degradation ladder (:func:`degradation_ladder` and
     :func:`run_with_recovery`): transient failures retry with exponential
     backoff on the device the service was built for. No rung moves work
@@ -34,6 +34,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from ..analysis.checked import DebugCheckError
 from ..core.validate import RequestRejected  # noqa: F401  (re-exported:
 #   the serving layers raise it for admission and dispatch-time poison)
 
@@ -76,10 +77,12 @@ def is_transient(exc: BaseException) -> bool:
 
 def is_poison(exc: BaseException) -> bool:
     """A data-dependent failure: retrying the same lanes reproduces it,
-    so the caller should bisect and quarantine instead. Matches
+    so the caller should bisect and quarantine instead. Matches the
+    sanitizer's :class:`~repro_torch.analysis.checked.DebugCheckError`
+    (``REPRO_DEBUG_CHECKS=1``: a NaN input or a broken invariant),
     ``FloatingPointError`` and anything tagged ``poisoned_instance`` (the
     fault-injection harness)."""
-    if isinstance(exc, FloatingPointError):
+    if isinstance(exc, (DebugCheckError, FloatingPointError)):
         return True
     return bool(getattr(exc, "poisoned_instance", False))
 

@@ -223,9 +223,12 @@ def test_obs_events_and_sync_counts():
     # exactly one converged-mask read per chunk; the phase loop reads
     # nothing of its own (its stop flag comes with the first round's read)
     assert device.sync_counts["chunk"] == stats.dispatches
-    assert set(device.sync_counts) == {"round", "chunk", "sinkhorn"}
+    assert set(device.sync_counts) == {"round", "chunk", "sinkhorn",
+                                       "debug"}
     assert device.sync_counts["round"] > 0
     assert device.sync_counts["sinkhorn"] == 0
+    # the plain route reads nothing for the sanitizer
+    assert device.sync_counts["debug"] == 0
 
 
 def test_batched_wrappers_equal_reference():

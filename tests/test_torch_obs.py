@@ -413,3 +413,16 @@ def test_driver_chunk_events_carry_phase_progress():
         assert "compiled" not in e
     (choice,) = sink.events("solver-choice")
     assert choice["solver"] == "pushrelabel"
+
+
+def test_obs_scans_clean():
+    """Both static gates stay clean over the observability layer: the
+    lock-discipline scan (the repro_torch.obs targets included) and the
+    host-sync audit over the instrumented driver loops."""
+    from repro_torch.analysis import locks, syncaudit
+
+    targets = locks.default_targets()
+    assert {"MetricsRegistry", "JSONLSink", "History", "TraceCapture"} <= {
+        t.class_name for t in targets}
+    assert [f for t in targets for f in locks.scan_lock_discipline(t)] == []
+    assert syncaudit.audit_targets(syncaudit.default_targets()) == []

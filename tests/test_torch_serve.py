@@ -28,6 +28,8 @@ from repro.serve.engine import OTService as JService
 from repro.serve.faults import FaultInjector as JInjector
 from repro.serve.faults import FaultPlan as JPlan
 from repro.serve.scheduler import AsyncOTScheduler as JScheduler
+from repro_torch.analysis import set_debug_checks
+from repro_torch.analysis.checked import DebugCheckError
 from repro_torch.core import validate as V
 from repro_torch.core.api import (ASSIGNMENT, OT, DispatchPolicy, dispatch,
                                   solve)
@@ -490,6 +492,41 @@ def test_scheduler_bisection_isolates_dispatch_poison():
         f = sched.submit(*reqs[0], want=("cost",))
         assert f.result(timeout=WAIT).stats.quarantined == 0
     assert ("poison-dispatch", 0) in inj.log
+
+
+def test_scheduler_debug_check_triggered_bisection():
+    """With validation OFF and the sanitizer ON, a NaN input is caught
+    mid-dispatch (DebugCheckError) and bisection still isolates it: the
+    detection path the admission gate normally short-circuits. The
+    counterpart of the reference's
+    ``test_scheduler_checkify_triggered_bisection``; the compact policy,
+    because the checks apply to the single-device compacting driver."""
+    reqs = _cloud_batch(seed=9, n_req=4)
+    clean_costs = _clean_costs(reqs)
+    inj = FaultInjector(FaultPlan(poison_submits=(1,)))
+    set_debug_checks(True)
+    try:
+        with _sched(eps=0.2, linger_ms=100, faults=inj, validate=False,
+                    policy=DispatchPolicy(mode="compact")) as sched:
+            futs = [sched.submit(x, y) for x, y in reqs]
+            assert sched.flush(timeout=WAIT)
+            assert all(f.done() for f in futs)
+            with pytest.raises(RequestRejected, match="request #1"):
+                futs[1].result(timeout=0)
+            with pytest.raises(RequestRejected, match="nan"):
+                futs[1].result(timeout=0)
+            for i in (0, 2, 3):
+                assert futs[i].result(timeout=0)["cost"] == clean_costs[i]
+            assert sched.stats_dict()["quarantined"] == 1
+    finally:
+        set_debug_checks(None)
+
+
+def test_debug_check_error_is_poison():
+    err = DebugCheckError("finite-cost", 3, "nan or inf cost")
+    assert is_poison(err) and not is_transient(err)
+    assert (err.check, err.lane) == ("finite-cost", 3)
+    assert "bucket lane 3" in str(err)
 
 
 def _two_cpu_rungs(monkeypatch):
