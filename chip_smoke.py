@@ -118,15 +118,39 @@ Phases, in order; any failure exits non-zero:
      --strict`` in a child process exits 0, its dynamic pass on the card
      (no kernel built or loaded anew across the descent), and no kernel
      was built anew during this phase;
- 11. one JSON line with every kernel's numbers;
- 12. last line: ``{"ok": true, "device": {...}}``.
+ 11. the model-serving path (``repro_torch.models``,
+     ``serve/engine.Engine``) at the full width of deepseek-moe-16b (28
+     layers, d_model 2048, 64 routed experts top-6 plus 2 shared, vocab
+     102 400; random bf16 weights from the seed, built on the card):
+     (a) the parameter count, bytes and memory peak; (b) ``Engine`` with
+     ``router="topk"`` serving 4 requests (prompts of 37, 128, 300 and
+     512 tokens, 32 new tokens, one asking for none, one stopping at an
+     eos taken from its warm-up run), after a warm-up run: prefill time,
+     decode time per step, tokens/s, each completion's accounting, one
+     decode step under ``torch.profiler``, and decode through the caches
+     against prefill (B = 1, the 512-token prompt): in bf16 at full
+     depth, reported, and in float32 compute at full width on the first
+     four layers with nothing dropped, within rtol = atol = 1e-3;
+     (c) the same with ``router="pushrelabel"``: ``fused_ot_phases``
+     launched exactly once per MoE layer per forward pass (27 a pass),
+     no host read, the router's flows on the card at the prefill (2048 x
+     64) and decode (4 x 64) shapes bit-equal to the plain version on the
+     CPU, and each router's device time per layer; (d)
+     ``fused_ot_phases`` rows at those two shapes (24 phases of at most 8
+     rounds) against the plain version and the stepped core; (e) reduced
+     qwen3-4b, deepseek-moe-16b (pushrelabel) and jamba-1.5-large, float32
+     compute, card against CPU: logits within rtol = atol = 1e-3 and the
+     router's flows bit-equal;
+ 12. one JSON line with every kernel's numbers;
+ 13. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
 each solve of phase 7, phase 8's (a) and (b) together (the serve route),
-each run of phase 9 and each sanitized solve of phase 10 are driven with
-the launch counts set to 0 just before and read just after; the kernels
-line gives each kernel's launches on its route, and on the serve route
-as ``serve_launches``.
+each run of phase 9, each sanitized solve of phase 10 and each
+``Engine`` run of phase 11 are driven with the launch counts set to 0
+just before and read just after; the kernels line gives each kernel's
+launches on its route, on the serve route as ``serve_launches`` and on
+the engine's (``router="pushrelabel"``) as ``engine_launches``.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -202,6 +226,23 @@ SIZES = {
     "audit": {"nan": (4, 2048, 0.05), "corrupt": (2, 64),
               "requests": 8, "sizes": (1024, 2048), "eps": 0.1,
               "nan_at": 3},
+    # phase 11, the model-serving path: the model (full width; "reduce"
+    # shrinks it for a rehearsal on the CPU), the Engine's requests (one
+    # prompt of each length, new_tokens each but request zero_new_at,
+    # which asks for none; request eos_at[0] stops at the token its
+    # warm-up run gave at step eos_at[1]), the cache length, the MoE
+    # layers and tolerance of the float32 decode-against-prefill check at
+    # full width (the dense layer before them), and (e)'s
+    # reduced models (arch, router) with the card-vs-CPU tolerance of
+    # their float32 logits
+    "models": {"arch": "deepseek-moe-16b", "prompts": (37, 128, 300, 512),
+               "new_tokens": 32, "zero_new_at": 1, "eos_at": (2, 4),
+               "max_len": 576, "f32_moe_layers": 3,
+               "f32_tol": {"rtol": 1e-3, "atol": 1e-3},
+               "card_vs_cpu": [("qwen3-4b", None),
+                               ("deepseek-moe-16b", "pushrelabel"),
+                               ("jamba-1.5-large-398b", None)],
+               "card_vs_cpu_tol": {"rtol": 1e-3, "atol": 1e-3}},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -509,6 +550,14 @@ def main() -> int:
     log(f"[10] phase 10 took {time.monotonic() - t10:.1f} s; done at "
         f"{time.monotonic() - t_start:.0f} s")
 
+    # -- 11. the model-serving path, counted --------------------------------
+    t11 = time.monotonic()
+    if not phase_models(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the model-serving path")
+    record["phases"]["models"]["phase_s"] = time.monotonic() - t11
+    log(f"[11] phase 11 took {time.monotonic() - t11:.1f} s; done at "
+        f"{time.monotonic() - t_start:.0f} s")
+
     # -- 11. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -521,8 +570,23 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ok": row["ok"], "shape": row["shape"],
             "serve_launches": launches["serve"][name],
+            "engine_launches": launches["engine"][name],
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
                else {})})
+    # fused_ot_phases at the pushrelabel router's shapes; its launches are
+    # the Engine run's (phase 11 (c))
+    source, replaces = KERNELS["fused_ot_phases"]
+    for row in record["phases"]["models"]["router_rows"]:
+        kernels.append({
+            "name": "fused_ot_phases", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": launches["engine"]["fused_ot_phases"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ok": row["ok"], "shape": row["shape"], "k": row["k"],
+            "path": "engine (pushrelabel router)",
+            "stepped_ms": row["stepped_ms"]})
     record["kernels"] = kernels
     record["launches"] = launches
     record["ot_launches"] = ot_launches
@@ -530,7 +594,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[11] record written to {args.out}")
+    log(f"[12] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2387,6 +2451,463 @@ def phase_audit(torch, ops, rdev, dev, record, ctx, launches) -> bool:
                and "no unsuppressed findings" in out.stdout
                and "no kernel rebuilt" in out.stdout and not rebuilt)
     return ok
+
+
+# -- phase 11: the model-serving path ------------------------------------
+
+def _record_calls(torch, mod, names):
+    """Wrap ``mod.<name>`` for each name so every call is synchronized and
+    timed on the host clock; returns (calls {name: [seconds]}, restore)."""
+    calls = {n: [] for n in names}
+    orig = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[n](*a, **kw)
+            torch.cuda.synchronize()
+            calls[n].append(time.perf_counter() - t0)
+            return out
+        return timed
+    for n in names:
+        setattr(mod, n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(mod, n, orig[n])
+    return calls, restore
+
+
+def _tap_router(moe, keep):
+    """Record ``moe.pushrelabel_assign``'s calls whose token count is in
+    ``keep`` (first call of each): {T: (affinity, k, capacity, flow,
+    keyword arguments)}.
+    Returns (taps, restore); the tap launches nothing of its own."""
+    taps = {}
+    orig = moe.pushrelabel_assign
+
+    def tapped(affinity, k, capacity, **kw):
+        flow = orig(affinity, k, capacity, **kw)
+        t = affinity.shape[0]
+        if t in keep and t not in taps:
+            taps[t] = (affinity.clone(), k, capacity, flow.clone(), kw)
+        return flow
+    moe.pushrelabel_assign = tapped
+
+    def restore():
+        moe.pushrelabel_assign = orig
+    return taps, restore
+
+
+def _model_requests(rng, cfg, spec):
+    """Phase 11's requests: (prompt, max_new_tokens) for each prompt
+    length, one of them with max_new_tokens = 0."""
+    out = []
+    for i, n in enumerate(spec["prompts"]):
+        new = 0 if i == spec["zero_new_at"] else spec["new_tokens"]
+        out.append((rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+                    new))
+    return out
+
+
+def _serve_once(torch, ops, rdev, engine, Request, reqs, eos, moe_layers,
+                tap_keep=()):
+    """One counted ``Engine.run_batch``: launches and syncs from 0, the
+    model's prefill and decode calls timed, the router's calls tapped."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    for (prompt, new), e in zip(reqs, eos):
+        engine.submit(Request(prompt=prompt, max_new_tokens=new, eos_id=e))
+    calls, restore = _record_calls(torch, M, ("prefill", "decode_step"))
+    taps, untap = _tap_router(moe, set(tap_keep))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    t0 = time.perf_counter()
+    try:
+        comps = engine.run_batch()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        untap()
+    wall = time.perf_counter() - t0
+    launched = dict(ops.launches)
+    passes = len(calls["prefill"]) + len(calls["decode_step"])
+    dec = calls["decode_step"]
+    n_tok = sum(c.decode_steps for c in comps)
+    run = {
+        "wall_s": wall, "prefill_s": calls["prefill"][0],
+        "decode_steps": len(dec),
+        "decode_ms_per_step": 1e3 * float(np.median(dec)) if dec else None,
+        "decode_s": float(sum(dec)), "tokens": n_tok,
+        "tokens_per_s": n_tok / wall,
+        "forward_passes": passes, "launches": launched,
+        "syncs": dict(rdev.sync_counts),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "completions": [{"prefill_len": c.prefill_len,
+                         "decode_steps": c.decode_steps,
+                         "latency_s": c.latency_s,
+                         "tokens": c.tokens.tolist()} for c in comps],
+        "moe_layers": moe_layers,
+    }
+    return run, comps, taps
+
+
+def _check_accounting(reqs, eos, comps, plen) -> list:
+    """The reference's per-sequence accounting, from the tokens: each
+    completion ends at its first eos or at max_new_tokens."""
+    bad = []
+    for i, ((prompt, new), e, c) in enumerate(zip(reqs, eos, comps)):
+        toks = list(c.tokens)
+        want = max(new, 0)
+        if e is not None and e in toks:
+            want = min(want, toks.index(e) + 1)
+        ok = (c.prefill_len == plen and c.decode_steps == len(toks) == want
+              and (e is None or e not in toks[:-1]) and c.latency_s > 0)
+        if not ok:
+            bad.append(i)
+    return bad
+
+
+def _router_flows_equal(torch, moe, taps) -> dict:
+    """Each tapped router call's flow on the card against the plain
+    version on the CPU, on the same affinity."""
+    out = {}
+    for t, (aff, k, capacity, flow, kw) in sorted(taps.items()):
+        ref = moe.pushrelabel_assign(aff.cpu(), k, capacity, **kw)
+        out[t] = {"shape": list(aff.shape), "k": k, "capacity": capacity,
+                  "equal": bool(torch.equal(flow.cpu(), ref)),
+                  "units": int(flow.sum())}
+    return out
+
+
+def _decode_matches_prefill(torch, M, params, cfg, prompt, dev,
+                            tol=None):
+    """Max |logit difference| between the prefill of ``prompt`` and the
+    decode of its last token after prefilling the rest (B = 1); ok within
+    ``tol`` (the reference's bf16 tolerance, rtol = atol = 0.15, by
+    default)."""
+    from repro_torch.models import moe
+
+    tol = tol or {"rtol": 0.15, "atol": 0.15}
+    toks = torch.as_tensor(prompt[None], device=dev)
+    # the last token's top-k experts in each MoE layer, in the prefill of
+    # all tokens and in the decode step
+    picks = {"prefill": [], "decode": []}
+    orig = moe.route_topk
+
+    def tapped(logits, k):
+        sel, gates = orig(logits, k)
+        if logits.shape[0] in (1, len(prompt)):
+            picks["decode" if logits.shape[0] == 1 else "prefill"].append(
+                sorted(sel[-1].tolist()))
+        return sel, gates
+    moe.route_topk = tapped
+    try:
+        with torch.inference_mode():
+            _, full = M.prefill(params, cfg, {"tokens": toks})
+            caches, _ = M.prefill(params, cfg, {"tokens": toks[:, :-1]})
+            caches = M.pad_caches(cfg, caches, toks.shape[1] + 1)
+            step, _ = M.decode_step(params, cfg, caches, toks[:, -1:],
+                                    toks.shape[1] - 1)
+    finally:
+        moe.route_topk = orig
+    full, step = full.float(), step.float()
+    err = float((full - step).abs().max())
+    ok = bool(torch.allclose(full, step, **tol))
+    flips = [i for i, (a, b) in enumerate(zip(picks["prefill"],
+                                               picks["decode"])) if a != b]
+    return {"max_abs_diff": err, "ok": ok, "tol": tol,
+            "moe_layers_routed_otherwise": flips}
+
+
+def _decode_vs_prefill_f32(torch, M, cfg, prompt, seed, dev):
+    """Decode against prefill in float32 compute at full width, depth cut
+    to the dense layer and ``SIZES["models"]["f32_moe_layers"]`` MoE
+    layers (float32 weights of the whole model would not fit beside the
+    bf16 ones), with nothing dropped: the cache path without bf16
+    rounding, whose differences at full depth move the routers."""
+    spec = SIZES["models"]
+    cut = cfg.with_(num_layers=cfg.first_dense_layers
+                    + spec["f32_moe_layers"],
+                    capacity_factor=float(cfg.num_experts))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        params = M.init_params(cut, gen, device=dev, dtype=torch.float32)
+        out = _decode_matches_prefill(torch, M, params, cut, prompt, dev,
+                                      tol=spec["f32_tol"])
+    finally:
+        M.COMPUTE_DTYPE = saved
+    out["num_layers"] = cut.num_layers
+    return out
+
+
+def _profile_decode(torch, M, engine, reqs, top: int = 8):
+    """One decode step of the Engine's batch under ``torch.profiler``:
+    device time by kernel (the ``top`` largest), their sum against the
+    step's wall time (the busy share)."""
+    cfg, dev = engine.cfg, engine.device
+    plen = max(len(p) for p, _ in reqs)
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, (p, _) in enumerate(reqs):
+        toks[i, plen - len(p):] = p
+    with torch.inference_mode():
+        caches, logits = M.prefill(engine.params, cfg, {
+            "tokens": torch.as_tensor(toks, device=dev)})
+        caches = M.pad_caches(cfg, caches, engine.max_len)
+        cur = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        M.decode_step(engine.params, cfg, caches, cur, plen)   # warm
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            M.decode_step(engine.params, cfg, caches, cur, plen + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kern = sorted(((device_us(e), e.key, e.count)
+                   for e in prof.key_averages() if device_us(e) > 0),
+                  reverse=True)
+    busy = sum(us for us, _, _ in kern) / 1e3
+    return {"wall_ms": 1e3 * wall, "kernels_ms": busy,
+            "busy_share": busy / (1e3 * wall),
+            "kernel_launches": sum(c for _, _, c in kern),
+            "top": [{"kernel": k[:80], "ms": us / 1e3, "count": c}
+                    for us, k, c in kern[:top]]}
+
+
+def _router_times(torch, moe, taps):
+    """Device time of each router per layer on the tapped inputs (the
+    logits of one MoE layer), ``cuda_ms``: the whole ``pushrelabel``
+    router, its ``pushrelabel_assign`` alone, and ``topk``."""
+    out = {}
+    for t, (aff, k, capacity, _, kw) in sorted(taps.items()):
+        out[t] = {
+            "pushrelabel_ms": cuda_ms(
+                torch, lambda: moe.route_pushrelabel(aff, k), reps=10),
+            "pushrelabel_assign_ms": cuda_ms(
+                torch, lambda: moe.pushrelabel_assign(aff, k, capacity,
+                                                      **kw), reps=10),
+            "topk_ms": cuda_ms(torch, lambda: moe.route_topk(aff, k),
+                               reps=10),
+        }
+    return out
+
+
+def _router_rows(torch, ops, moe, taps, launches_engine):
+    """``fused_ot_phases`` at the router's shapes (phase 11 (d)): one
+    launch of 24 phases of at most 8 rounds from the router's start
+    state, against the plain version and the stepped core."""
+    rows = []
+    for t, (aff, k, capacity, _, kw) in sorted(taps.items()):
+        e = aff.shape[1]
+        phases = 24
+        c_int = moe.router_costs(aff)[None].contiguous()
+        s0 = moe.router_state(t, e, k, capacity, aff.device)
+        thr = torch.full((1,), -1, dtype=torch.int32, device=aff.device)
+        cap = torch.full((1,), phases, dtype=torch.int32, device=aff.device)
+        row = _ot_row(torch, ops, c_int, s0, thr, cap, 8, phases)
+        row.update(router_tokens=t, capacity=capacity,
+                   engine_launches=launches_engine)
+        rows.append(row)
+    return rows
+
+
+def _card_vs_cpu_model(torch, M, moe, cfg, seed, dev):
+    """Phase 11 (e): one reduced model, float32 compute, card against
+    CPU: prefill and two decode steps (teacher-forced with the CPU's
+    argmax); the router's flows on the card against the plain version."""
+    from repro_torch.models.model import COMPUTE_DTYPE
+
+    tol = SIZES["models"]["card_vs_cpu_tol"]
+    rng = np.random.default_rng([seed, 11])
+    p_cpu = M.init_params(cfg, seed=seed, device="cpu")
+    p_dev = M.cast_params(p_cpu, dev)          # float32: moved, not cast
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+    res, diffs = {"arch": cfg.name, "router": cfg.router}, []
+    taps, untap = _tap_router(moe, {48, 2})
+    try:
+        outs = {}
+        for where, p, d in (("cpu", p_cpu, torch.device("cpu")),
+                            ("card", p_dev, dev)):
+            tk = torch.as_tensor(toks, device=d)
+            caches, lg = M.prefill(p, cfg, {"tokens": tk})
+            caches = M.pad_caches(cfg, caches, 32)
+            got = [lg.float().cpu()]
+            for i in range(2):
+                src = outs["cpu"][i] if where == "card" else got[i]
+                nxt = src.argmax(-1)[:, None].to(torch.int32).to(d)
+                lg, caches = M.decode_step(p, cfg, caches, nxt, 24 + i)
+                got.append(lg.float().cpu())
+            outs[where] = got
+            if where == "cpu":
+                taps.clear()
+    finally:
+        untap()
+    for a, b in zip(outs["card"], outs["cpu"]):
+        diffs.append(float((a - b).abs().max()))
+    res["max_abs_diff"] = diffs
+    res["logits_ok"] = all(torch.allclose(a, b, **tol)
+                           for a, b in zip(outs["card"], outs["cpu"]))
+    res["flows"] = _router_flows_equal(torch, moe, taps)
+    res["ok"] = res["logits_ok"] and all(
+        f["equal"] for f in res["flows"].values())
+    res["compute_dtype"] = str(COMPUTE_DTYPE)
+    return res
+
+
+def phase_models(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The model-serving path (see the module docstring, phase 11)."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Engine, Request
+
+    spec = SIZES["models"]
+    res = {"card": smi_line()}
+    record["phases"]["models"] = res
+    for key in [k for k in ctx if k != "seed"]:
+        del ctx[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["memory_before"] = torch.cuda.memory_allocated()
+
+    # (a) the model at full width, bf16, on the card
+    cfg = ARCHS[spec["arch"]]
+    if spec.get("reduce"):
+        cfg = reduced(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ctx["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = M.leaves(params)
+    res["build"] = {
+        "s": time.perf_counter() - t0,
+        "parameters": sum(t.numel() for t in leaves),
+        "bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "dtypes": sorted({str(t.dtype) for t in leaves})}
+    log(f"[11] (a) {cfg.name}: {res['build']['parameters']:,} parameters, "
+        f"{res['build']['bytes'] / 1e9:.2f} GB, built in "
+        f"{res['build']['s']:.1f} s, peak "
+        f"{res['build']['max_memory_allocated'] / 1e9:.2f} GB")
+    ok = res["build"]["dtypes"] == ["torch.bfloat16"]
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    rng = np.random.default_rng([ctx["seed"], 11])
+    reqs = _model_requests(rng, cfg, spec)
+    plen = max(len(p) for p, _ in reqs)
+    t_tok = len(reqs) * plen
+    no_eos = [None] * len(reqs)
+
+    # (b), (c): each router, a warm-up run, then the counted run
+    engines = {}
+    for router in ("topk", "pushrelabel"):
+        rcfg = cfg.with_(router=router)
+        engine = Engine(rcfg, params, max_len=spec["max_len"], device=dev)
+        # the bf16 weights on the card are served as they are, not copied
+        shared = all(a is b for a, b in zip(M.leaves(engine.params), leaves))
+        warm, warm_c, _ = _serve_once(torch, ops, rdev, engine, Request,
+                                      reqs, no_eos, n_moe)
+        eos_at = spec["eos_at"]
+        eos = list(no_eos)
+        eos[eos_at[0]] = int(warm_c[eos_at[0]].tokens[eos_at[1]])
+        run, comps, taps = _serve_once(
+            torch, ops, rdev, engine, Request, reqs, eos, n_moe,
+            tap_keep=(t_tok, len(reqs)) if router == "pushrelabel" else ())
+        run["warm_up_wall_s"] = warm["wall_s"]
+        run["eos"] = eos
+        bad = _check_accounting(reqs, eos, comps, plen)
+        # deterministic: the requests without eos decode as in the warm-up
+        same = all(list(c.tokens) == list(w.tokens)
+                   for i, (c, w) in enumerate(zip(comps, warm_c))
+                   if eos[i] is None)
+        run["accounting_bad"] = bad
+        run["same_tokens_as_warm_up"] = same
+        run["weights_shared"] = shared
+        ok_r = shared and not bad and all(
+            ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()
+            for c in comps)
+        n_ot = run["launches"]["fused_ot_phases"]
+        if router == "pushrelabel":
+            want = n_moe * run["forward_passes"]
+            run["fused_ot_per_pass"] = n_ot / run["forward_passes"]
+            flows = _router_flows_equal(torch, moe, taps)
+            run["router_flows"] = flows
+            run["router_ms"] = _router_times(torch, moe, taps)
+            ok_r &= (n_ot == want and sum(run["syncs"].values()) == 0
+                     and len(flows) == 2
+                     and all(f["equal"] for f in flows.values()))
+            launches["engine"] = run["launches"]
+            res["router_rows"] = _router_rows(torch, ops, moe, taps, n_ot)
+            ok_r &= all(r["ok"] for r in res["router_rows"])
+            del taps
+        else:
+            ok_r &= n_ot == 0
+            # decode through the caches against prefill, B = 1 on the
+            # longest prompt: in bf16 at full depth as published and with
+            # nothing dropped (capacity_factor = E), reported; in float32
+            # on the depth-cut model with nothing dropped, checked (see
+            # _decode_vs_prefill_f32)
+            long = reqs[int(np.argmax([len(p) for p, _ in reqs]))][0]
+            run["decode_vs_prefill"] = {
+                "bf16_published": _decode_matches_prefill(
+                    torch, M, engine.params, rcfg, long, dev),
+                "bf16_no_drops": _decode_matches_prefill(
+                    torch, M, engine.params, rcfg.with_(
+                        capacity_factor=float(cfg.num_experts)), long, dev),
+                "f32_no_drops": _decode_vs_prefill_f32(
+                    torch, M, rcfg, long, ctx["seed"], dev)}
+            ok_r &= run["decode_vs_prefill"]["f32_no_drops"]["ok"]
+        run["ok"] = bool(ok_r)
+        res[router] = run
+        show = {k: v for k, v in run.items()
+                if k not in ("completions", "router_ms")}
+        log(f"[11] ({'b' if router == 'topk' else 'c'}) {router}: "
+            f"{json.dumps(show, default=str)}")
+        log(f"[11]     decode_steps "
+            f"{[c.decode_steps for c in comps]}, latency_s "
+            f"{[round(c.latency_s, 4) for c in comps]}")
+        if router == "pushrelabel":
+            log(f"[11]     router ms per layer {json.dumps(run['router_ms'])}")
+            for row in res["router_rows"]:
+                log(f"[11] (d) {json.dumps(row)}")
+        ok &= ok_r
+        engines[router] = engine
+        del engine, comps, warm_c
+        gc.collect()
+    # one decode step of each router under the profiler, after every
+    # timed row
+    for router, engine in engines.items():
+        res[router]["decode_profile"] = prof = _profile_decode(
+            torch, M, engine, reqs)
+        log(f"[11] {router} decode step profiled: {json.dumps(prof)}")
+    del params, leaves, gen, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) reduced models, card against CPU, float32 compute
+    res["card_vs_cpu"] = []
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        for arch, router in spec["card_vs_cpu"]:
+            rc = reduced(ARCHS[arch])
+            if router:
+                rc = rc.with_(router=router)
+            r = _card_vs_cpu_model(torch, M, moe, rc, ctx["seed"], dev)
+            log(f"[11] (e) {json.dumps(r)}")
+            res["card_vs_cpu"].append(r)
+            ok &= r["ok"]
+    finally:
+        M.COMPUTE_DTYPE = saved
+    return bool(ok)
 
 
 if __name__ == "__main__":

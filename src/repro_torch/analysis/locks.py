@@ -26,10 +26,9 @@ lock-free instruments (``Counter``/``Gauge``/``Histogram``,
 ``InMemorySink``, ``Tracer``) are recorded as empty-field exemption
 targets so the audit names WHY each one needs no lock.
 
-``serve/engine.py``'s ``OTService`` is single-threaded by contract (no
-worker threads, no lock); it is scanned with an empty field set so the
-audit records the exemption. The reference's LLM ``Engine`` is not
-ported yet, and neither is its target.
+``serve/engine.py``'s ``Engine``/``OTService`` are single-threaded by
+contract (no worker threads, no lock); they are scanned with an empty
+field set so the audit records the exemption explicitly.
 """
 from __future__ import annotations
 
@@ -152,6 +151,9 @@ def default_targets() -> List[LockTarget]:
     return [
         LockTarget(path=scheduler.__file__, class_name="AsyncOTScheduler",
                    fields=shared, lock_attr="_lock"),
+        LockTarget(path=engine.__file__, class_name="Engine", fields=(),
+                   lock_attr=None,
+                   note="single-threaded by contract (no worker threads)"),
         LockTarget(path=engine.__file__, class_name="OTService", fields=(),
                    lock_attr=None,
                    note="single-threaded by contract (no worker threads; "

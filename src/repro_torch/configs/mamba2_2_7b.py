@@ -1,0 +1,10 @@
+"""mamba2-2.7b [ssm] - SSD (state-space duality), attention-free.
+[arXiv:2405.21060; unverified]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-2.7b", family="ssm",
+    num_layers=64, d_model=2560, num_heads=0, num_kv_heads=0,
+    d_ff=0, vocab_size=50280, head_dim=0,
+    ssm_state=128, ssm_headdim=64, subquadratic=True,
+)

@@ -1,16 +1,23 @@
-"""The paper's OT solver as a batched service: ``OTRequest`` and
-``OTService``.
+"""Batched serving engine of a language model (``Request``,
+``Completion``, ``Engine``) and the paper's OT solver as a batched
+service (``OTRequest``, ``OTService``).
 
-Port of the OT half of ``repro.serve.engine``. The reference module's LLM
-``Engine`` (prefill and decode of a language model) waits for its own
-slice of the port (ROADMAP.md Queue 1 item 13).
+Port of ``repro.serve.engine``. Both run on the CUDA device unless they
+are given ``device="cpu"`` (and raise at construction when CUDA is asked
+for but missing).
 
-``OTService`` runs on the CUDA device unless it is given ``device="cpu"``
-(and raises at construction when CUDA is asked for but missing). Each
-bucket's cost matrices are built by one launch of the ``cost_matrix``
-kernel (``serve/collate.py``; its plain version on the CPU), then
-solved through the ``core/api.solve`` front door, whose propose steps
-launch ``slack_propose`` (or the fused kernels under a fused policy).
+``Engine`` prefills a batch of left-padded prompts once and decodes it
+greedily in lockstep, each sequence stopping at its own eos or
+``max_new_tokens``. Its model (``models/``) runs in bf16: the weights are
+cast once, at construction. A MoE model under ``router="pushrelabel"``
+launches the ``fused_ot_phases`` kernel once per MoE layer per forward
+pass.
+
+``OTService``'s bucket cost matrices are built by one launch of the
+``cost_matrix`` kernel (``serve/collate.py``; its plain version on the
+CPU), then solved through the ``core/api.solve`` front door, whose
+propose steps launch ``slack_propose`` (or the fused kernels under a
+fused policy).
 """
 from __future__ import annotations
 
@@ -18,12 +25,105 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..core.device import resolve_device
+from ..models import model as M
 from ..obs import MetricsRegistry, Tracer, new_id
 from ..obs import now as _now
 from .collate import collate_bucket, keep_lanes
 
-__all__ = ["OTRequest", "OTService"]
+__all__ = ["Request", "Completion", "Engine", "OTRequest", "OTService"]
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray                 # (L,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+
+
+@dataclass
+class Completion:
+    tokens: np.ndarray
+    prefill_len: int
+    decode_steps: int
+    latency_s: float
+
+
+class Engine:
+    """Synchronous batched engine: submit() queues requests; run_batch()
+    pads them to a common prompt length, prefills once, and decodes the
+    whole batch in lockstep with per-sequence early-stop masking.
+
+    ``params`` are the port's model parameters (``models.model``); they
+    are cast to bf16 and placed on ``device`` once, here."""
+
+    def __init__(self, cfg, params, max_len: int = 512, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = M.cast_params(params, self.device)
+        self.max_len = max_len
+        self.queue: List[Request] = []
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _next_tokens(self, logits):
+        return torch.argmax(logits[:, : self.cfg.vocab_size], -1)[:, None] \
+            .to(torch.int32)
+
+    @torch.inference_mode()
+    def run_batch(self) -> List[Completion]:
+        if not self.queue:
+            return []
+        reqs, self.queue = self.queue, []
+        t0 = _now()
+        b = len(reqs)
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+        caches, logits = M.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, device=self.device)})
+        caches = M.pad_caches(self.cfg, caches, self.max_len)
+        max_new = max(r.max_new_tokens for r in reqs)
+        out = np.zeros((b, max(max_new, 1)), np.int32)
+        # max_new_tokens=0 requests are complete before the first step
+        done = np.asarray([r.max_new_tokens <= 0 for r in reqs])
+        # Per-sequence accounting: the batch decodes in lockstep, but each
+        # request's tokens end at its own EOS / max_new_tokens, its
+        # decode_steps is the number of steps it was live, and its latency
+        # is the wall time until *its* completion (not the whole batch's).
+        steps_per_seq = np.zeros((b,), np.int32)
+        finish_time = np.full((b,), np.nan)
+        cur = self._next_tokens(logits)
+        for t in range(max_new):
+            out[:, t] = cur[:, 0].cpu().numpy()
+            now = _now()
+            for i, r in enumerate(reqs):
+                if done[i]:
+                    continue
+                steps_per_seq[i] = t + 1
+                hit_eos = r.eos_id is not None and out[i, t] == r.eos_id
+                if hit_eos or t + 1 >= r.max_new_tokens:
+                    done[i] = True
+                    finish_time[i] = now
+            if done.all() or plen + t + 1 >= self.max_len:
+                break
+            logits, caches = M.decode_step(self.params, self.cfg, caches,
+                                           cur, plen + t)
+            cur = self._next_tokens(logits)
+        t_end = _now()
+        finish_time = np.where(np.isnan(finish_time), t_end, finish_time)
+        return [
+            Completion(tokens=out[i, : steps_per_seq[i]],
+                       prefill_len=plen,
+                       decode_steps=int(steps_per_seq[i]),
+                       latency_s=float(finish_time[i] - t0))
+            for i in range(b)
+        ]
 
 
 @dataclass

@@ -927,3 +927,72 @@ def test_mesh_logical_shards_on_card_equal_compact(dev, spec_name,
     else:
         for f in ("matching", "phases", "rounds", "y_b", "y_a"):
             assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+# -- the model-serving path: the pushrelabel router, the Engine ------------
+
+# (T, E, k): deepseek-moe-16b's router at chip_smoke's prefill (4 x 512
+# tokens) and decode (4) shapes, an odd prefill, the reduced model's
+ROUTER_SHAPES = [(2048, 64, 6), (4, 64, 6), (300, 64, 6), (48, 8, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k", ROUTER_SHAPES)
+def test_router_kernel_equals_plain(dev, t, e, k):
+    """``pushrelabel_assign`` on the card is one ``fused_ot_phases``
+    launch (24 phases, threshold -1) whose flow equals the plain
+    version's on the CPU bit for bit."""
+    from repro_torch.core import device as rdev
+    from repro_torch.models import moe
+
+    lg = np.random.default_rng(t + e).normal(size=(t, e)).astype(np.float32)
+    cap = -(-t * k // e)
+    before = ops.launches["fused_ot_phases"]
+    rdev.reset_sync_counts()
+    got = moe.pushrelabel_assign(torch.as_tensor(lg, device=dev), k, cap,
+                                 phases=24)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_ot_phases"] == before + 1
+    assert sum(rdev.sync_counts.values()) == 0
+    ref = moe.pushrelabel_assign(torch.as_tensor(lg), k, cap, phases=24)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,router", [("qwen3-4b", None),
+                                         ("deepseek-moe-16b", "pushrelabel"),
+                                         ("jamba-1.5-large-398b", None)])
+def test_engine_on_card_equals_cpu(dev, arch, router, monkeypatch):
+    """The reduced model served by ``Engine`` on the card and on the CPU
+    from the same float32 weights, float32 compute: the same
+    completions; one router launch per MoE layer per forward pass."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import build_stages
+    from repro_torch.serve.engine import Engine, Request
+
+    monkeypatch.setattr(M, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced(ARCHS[arch])
+    if router:
+        cfg = cfg.with_(router=router)
+    params = M.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(1, 500, size=n).astype(np.int32), m)
+            for n, m in ((7, 5), (12, 0), (3, 6))]
+    out = {}
+    for where in ("cpu", dev):
+        engine = Engine(cfg, params, max_len=32, device=where)
+        for p, m in reqs:
+            engine.submit(Request(prompt=p, max_new_tokens=m))
+        ops.reset_launches()
+        out[str(where)] = engine.run_batch()
+    # one prefill, then a decode step before every token but the first
+    passes = max(c.decode_steps for c in out[str(dev)])
+    n_moe = sum(n * sum(ffn == "moe" for _, ffn in spec)
+                for spec, n in build_stages(cfg))
+    want = n_moe * passes if cfg.router == "pushrelabel" else 0
+    assert ops.launches["fused_ot_phases"] == want
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert a.prefill_len == b.prefill_len
+        assert a.decode_steps == b.decode_steps
+        np.testing.assert_array_equal(a.tokens, b.tokens)

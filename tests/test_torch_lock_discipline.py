@@ -53,18 +53,18 @@ def test_default_targets_cover_obs():
         assert by_class[cls].fields, cls
         assert "repro_torch" in by_class[cls].path, cls
     for cls in ("Counter", "Gauge", "Histogram", "InMemorySink",
-                "Tracer", "Span", "OTService"):
+                "Tracer", "Span", "OTService", "Engine"):
         assert by_class[cls].lock_attr is None, cls
         assert by_class[cls].note, cls
     assert "stats" not in by_class["AsyncOTScheduler"].fields
 
 
 def test_default_targets_equal_reference_less_engine():
-    """The reference's targets, field for field, less the LLM Engine,
-    which the port does not have yet."""
+    """The reference's targets, field for field, the LLM Engine's
+    included."""
     ref = {t.class_name: t for t in jlocks.default_targets()}
     got = {t.class_name: t for t in default_targets()}
-    assert set(got) == set(ref) - {"Engine"}
+    assert set(got) == set(ref)
     for name, t in got.items():
         assert (t.fields, t.lock_attr, t.exempt_methods) == (
             ref[name].fields, ref[name].lock_attr, ref[name].exempt_methods)
