@@ -141,16 +141,50 @@ Phases, in order; any failure exits non-zero:
      qwen3-4b, deepseek-moe-16b (pushrelabel) and jamba-1.5-large, float32
      compute, card against CPU: logits within rtol = atol = 1e-3 and the
      router's flows bit-equal;
- 12. one JSON line with every kernel's numbers;
- 13. last line: ``{"ok": true, "device": {...}}``.
+ 12. the training path (``models.model.loss_fn``, ``optim/``, ``train/``,
+     ``data/``, ``checkpoint/``), after phase 11's model is freed: (a)
+     deepseek-moe-16b at full width cut to 4 layers (the dense layer and
+     3 MoE layers, 2 267 039 744 parameters), ``router="pushrelabel"``,
+     float32 masters drawn on the card from the seed, AdamW, remat:
+     parameter count, bytes of params, m and v, the memory peak; (b)
+     ``make_train_step``'s step on ``synthetic_batch(cfg, 512, 4, seed,
+     step)`` (2048 tokens, the router's 2048 x 64 instance): one warm-up
+     step, then 6 counted steps, each with finite loss, grad_norm and
+     lr; median step time (host clock to the ``float(loss)`` read, as
+     ``Trainer.run``), tokens/s, the memory peak, every float32 master
+     moved, no host read, exactly 6 x 3 x 2 = 36 ``fused_ot_phases``
+     launches (forward and remat recompute of each MoE layer); one more
+     step under ``torch.profiler`` (busy share, top kernels, the router's
+     device time a launch); the step's model FLOPs (``roofline.analysis.
+     model_flops``) as a share of the bf16 peak; (c) the same under
+     ``router="topk"``, from (b)'s state, reported, with 0 launches; (d)
+     a rebuild from the seed repeats (b)'s warm-up step with loss and
+     grad_norm bit-equal, and two 3-step runs of reduced
+     deepseek-moe-16b (``pushrelabel``) give bit-equal parameters; (e)
+     reduced llama3.2-3b and deepseek-moe-16b (``pushrelabel``), float32
+     compute, 2 steps from the same parameters on the card and on the
+     CPU: loss and grad_norm within rtol = atol = 1e-3, the router's
+     flows bit-equal to the plain version; (f) the ``Trainer`` on the
+     card, reduced deepseek-moe-16b (``pushrelabel``): 8 steps against 4,
+     a dropped object and a resumed ``Trainer`` for 4 more (checkpoints
+     under ``build/``), the last 4 losses bit-equal, and the reference's
+     loss-decrease check (40 steps, lr 2e-3, warmup 5: the mean of the
+     last 5 losses below the first 5's minus 0.1); 16-23 s of the whole
+     script on an H100, within the 90 s it may take;
+ 13. one JSON line with every kernel's numbers;
+ 14. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
 each solve of phase 7, phase 8's (a) and (b) together (the serve route),
-each run of phase 9, each sanitized solve of phase 10 and each
-``Engine`` run of phase 11 are driven with the launch counts set to 0
-just before and read just after; the kernels line gives each kernel's
-launches on its route, on the serve route as ``serve_launches`` and on
-the engine's (``router="pushrelabel"``) as ``engine_launches``.
+each run of phase 9, each sanitized solve of phase 10, each ``Engine``
+run of phase 11 and the counted steps of phase 12 (b) and (c) are
+driven with the launch counts set to 0 just before and read just after;
+the kernels line gives each kernel's launches on its route, on the
+serve route as ``serve_launches``, on the engine's
+(``router="pushrelabel"``) as ``engine_launches`` and on phase 12 (b)'s
+training steps as ``train_launches``. ``profiler_ms`` counts a
+profiler session only if it recorded every launch (see there); the
+record keeps each incomplete session under ``profiler_misses``.
 
 It needs one card and exits non-zero when CUDA is unavailable or when it
 is run outside a checkout of the repository.
@@ -176,6 +210,7 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
 # int32 ALU instructions: the fp32 rate counts an FMA as 2 flops, so one
 # instruction per lane per clock is half of it
 INT32_OP_PER_S = FP32_FLOP_PER_S / 2
+BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
 
 # the shapes of each phase (see the module docstring)
 SIZES = {
@@ -243,6 +278,24 @@ SIZES = {
                                ("deepseek-moe-16b", "pushrelabel"),
                                ("jamba-1.5-large-398b", None)],
                "card_vs_cpu_tol": {"rtol": 1e-3, "atol": 1e-3}},
+    # phase 12, the training path: the model at full width cut to
+    # num_layers (the dense layer and 3 MoE layers; "reduce" shrinks it
+    # for a rehearsal on the CPU), the batch of each step (B x S =
+    # 2048 tokens: the router's 2048 x 64 instance), the counted steps
+    # after one warm-up; (d) the reduced runs' steps; (e) the reduced
+    # models, their batch ("small"), steps, lr and the card-vs-CPU
+    # tolerance of loss and grad_norm; (f) the Trainer's kill/resume and
+    # the reference's loss-decrease run
+    "train": {"arch": "deepseek-moe-16b", "num_layers": 4, "seq_len": 512,
+              "batch": 4, "steps": 6, "reduced_steps": 3,
+              "small": {"seq_len": 16, "batch": 2}, "small_lr": 1e-3,
+              "card_vs_cpu": [("llama3.2-3b", None),
+                              ("deepseek-moe-16b", "pushrelabel")],
+              "card_vs_cpu_steps": 2,
+              "card_vs_cpu_tol": {"rtol": 1e-3, "atol": 1e-3},
+              "resume": {"seq_len": 16, "batch": 2, "ckpt_every": 4},
+              "decrease": {"seq_len": 32, "batch": 4, "steps": 40,
+                           "lr": 2e-3, "warmup": 5}},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -285,6 +338,7 @@ def fail(msg: str) -> int:
 
 
 FLUSH_BYTES = 256 << 20        # read before a cold call: > the 50 MB L2
+PROFILER_TRIES = 3             # profiler sessions before giving up
 _TIMING: dict = {}
 
 
@@ -375,19 +429,64 @@ def device_us(evt) -> float:
 
 def profiler_ms(torch, fn, kernel: str, reps: int = 5, cold: bool = True):
     """The cross-check of ``cuda_ms``: mean device time in ms, per call
-    of ``fn()``, of the CUDA kernels whose name contains ``kernel``, as
-    ``torch.profiler`` records them (CUPTI's start and end of each
-    kernel), with the same spacer before each call. None if the profiler
-    saw no such kernel."""
+    of ``fn()`` (which launches the kernel once), of the CUDA kernels
+    whose name contains ``kernel``, as ``torch.profiler`` records them
+    (CUPTI's start and end of each kernel), with the same spacer before
+    each call.
+
+    A session sometimes loses its GPU records: in runs of the whole
+    script a few sessions kept only the last call's records, or none,
+    whatever ran on the card before the first call (a 50 ms spin there
+    was lost with the rest), and the session right after saw every
+    launch. So a session counts only if it saw exactly ``reps``
+    launches of the kernel; up to ``PROFILER_TRIES`` sessions are run,
+    each incomplete one is logged and kept under
+    ``_TIMING["profiler_misses"]``, and None is returned if none was
+    complete."""
     host = _warm_up(torch, fn, 1)
+    tries = []
+    for _ in range(PROFILER_TRIES):
+        us, n, spins, order = _profiled(torch, fn, kernel, reps, cold,
+                                        host)
+        tries.append({"us": us, "launches_seen": n, "spins_seen": spins,
+                      "device_order": order})
+        if n == reps:
+            break
+    if len(tries) > 1 or n != reps:
+        miss = {"kernel": kernel, "reps": reps, "tries": tries}
+        _TIMING.setdefault("profiler_misses", []).append(miss)
+        log(f"profiler_ms: incomplete session(s): {json.dumps(miss)}")
+    return us / reps / 1e3 if n == reps else None
+
+
+def _profiled(torch, fn, kernel, reps, cold, host):
+    """One ``torch.profiler`` session (CUDA activity) over ``reps`` calls
+    of ``fn()``, each after the spacer: the summed device us and the
+    launches of the kernels named ``kernel``, the spacer's spins seen,
+    and the order of the device events (``_device_order``)."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             _spacer(torch, host, cold)
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    evts = prof.key_averages()
+    hit = [e for e in evts if kernel in e.key and device_us(e) > 0]
+    spins = sum(e.count for e in evts if "spin_kernel" in e.key)
+    return (sum(device_us(e) for e in hit), sum(e.count for e in hit),
+            spins, _device_order(prof, kernel))
+
+
+def _device_order(prof, kernel) -> str:
+    """The session's device events in start order, one letter each: "s"
+    a spin, "K" the kernel asked for, "o" any other (which records a
+    lossy session dropped)."""
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) is not None
+           and str(e.device_type).endswith("CUDA")]
+    dev.sort(key=lambda e: e.time_range.start)
+    return "".join("s" if "spin_kernel" in e.name
+                   else "K" if kernel in e.name else "o" for e in dev)
 
 
 def smi_line() -> str:
@@ -558,7 +657,15 @@ def main() -> int:
     log(f"[11] phase 11 took {time.monotonic() - t11:.1f} s; done at "
         f"{time.monotonic() - t_start:.0f} s")
 
-    # -- 11. kernels line -----------------------------------------------
+    # -- 12. the training path, counted -------------------------------------
+    t12 = time.monotonic()
+    if not phase_train(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the training path")
+    record["phases"]["train"]["phase_s"] = time.monotonic() - t12
+    log(f"[12] phase 12 took {time.monotonic() - t12:.1f} s; done at "
+        f"{time.monotonic() - t_start:.0f} s")
+
+    # -- 13. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -571,6 +678,7 @@ def main() -> int:
             "ok": row["ok"], "shape": row["shape"],
             "serve_launches": launches["serve"][name],
             "engine_launches": launches["engine"][name],
+            "train_launches": launches["train"][name],
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
                else {})})
     # fused_ot_phases at the pushrelabel router's shapes; its launches are
@@ -586,15 +694,18 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ok": row["ok"], "shape": row["shape"], "k": row["k"],
             "path": "engine (pushrelabel router)",
+            "engine_launches": launches["engine"]["fused_ot_phases"],
+            "train_launches": launches["train"]["fused_ot_phases"],
             "stepped_ms": row["stepped_ms"]})
     record["kernels"] = kernels
     record["launches"] = launches
     record["ot_launches"] = ot_launches
+    record["profiler_misses"] = _TIMING.get("profiler_misses", [])
     record["wall_s"] = time.monotonic() - t_start
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[12] record written to {args.out}")
+    log(f"[13] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2670,6 +2781,12 @@ def _profile_decode(torch, M, engine, reqs, top: int = 8):
             M.decode_step(engine.params, cfg, caches, cur, plen + 1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+    return _profile_summary(prof, wall, top)
+
+
+def _profile_summary(prof, wall: float, top: int) -> dict:
+    """A profile's kernels against the wall seconds it covered: their
+    summed device time, the busy share, launches, the ``top`` largest."""
     kern = sorted(((device_us(e), e.key, e.count)
                    for e in prof.key_averages() if device_us(e) > 0),
                   reverse=True)
@@ -2907,6 +3024,339 @@ def phase_models(torch, ops, rdev, dev, record, ctx, launches) -> bool:
             ok &= r["ok"]
     finally:
         M.COMPUTE_DTYPE = saved
+    return bool(ok)
+
+
+def _train_batch(torch, cfg, spec, seed, step, dev):
+    """The pipeline's batch of ``step`` on ``dev``."""
+    from repro_torch.data.pipeline import synthetic_batch
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        cfg, spec["seq_len"], spec["batch"], seed=seed, step=step).items()}
+
+
+def _run_steps(torch, step_fn, params, opt, cfg, spec, seed, steps, dev):
+    """``step_fn`` on the pipeline's batches of the step numbers
+    ``steps``: each step's metrics and seconds on the host clock from the
+    call to the ``float(loss)`` read, as ``Trainer.run`` times a step
+    (the read waits for the whole step, the optimizer included)."""
+    out = []
+    for s in steps:
+        b = _train_batch(torch, cfg, spec, seed, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        loss = float(m["loss"])
+        out.append({"step": s, "loss": loss, "s": time.perf_counter() - t0,
+                    "grad_norm": float(m["grad_norm"]),
+                    "lr": float(m["lr"])})
+    return params, opt, out
+
+
+def _masters_sample(M, params, n: int = 4096):
+    """The first ``n`` entries of every leaf, copied: enough to see that
+    the steps moved every master, without a copy of the model."""
+    return [t.detach().reshape(-1)[:n].clone() for t in M.leaves(params)]
+
+
+def _train_counted(torch, ops, rdev, M, step_fn, params, opt, cfg, spec,
+                   seed, dev, first):
+    """Phase 12 (b) / (c): a warm-up step (step ``first``), then
+    ``spec["steps"]`` counted steps with the launch and sync counts from
+    0 and the memory peak reset; returns (params, opt, run)."""
+    params, opt, warm = _run_steps(torch, step_fn, params, opt, cfg, spec,
+                                   seed, [first], dev)
+    before = _masters_sample(M, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    params, opt, steps = _run_steps(
+        torch, step_fn, params, opt, cfg, spec, seed,
+        range(first + 1, first + 1 + spec["steps"]), dev)
+    launched = dict(ops.launches)
+    syncs = dict(rdev.sync_counts)
+    after = _masters_sample(M, params)
+    times = [r["s"] for r in steps]
+    med = float(np.median(times))
+    tokens = spec["seq_len"] * spec["batch"]
+    run = {"warm_up": warm[0], "steps": steps,
+           "step_s_median": med, "step_s": times,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launched, "syncs": syncs,
+           "masters_changed": sum(not torch.equal(a, b)
+                                  for a, b in zip(before, after)),
+           "masters": len(before),
+           "finite": all(np.isfinite([r["loss"], r["grad_norm"], r["lr"]]
+                                     ).all() for r in warm + steps)}
+    return params, opt, run
+
+
+def _profile_step(torch, step_fn, params, opt, batches, want_router,
+                  top: int = 8):
+    """One training step (to the ``float(loss)`` read) under
+    ``torch.profiler``: the kernel table and busy share, and the router
+    kernel's device time a launch. A session
+    that recorded other than ``want_router`` router launches lost
+    records (see ``profiler_ms``): the next step of ``batches`` is
+    profiled instead, up to ``PROFILER_TRIES`` steps; the returned
+    profile says how many."""
+    for i in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batches[i])
+            float(m["loss"])
+            wall = time.perf_counter() - t0
+        router = [(device_us(e), e.count) for e in prof.key_averages()
+                  if "fused_ot_kernel" in e.key]
+        n = sum(c for _, c in router)
+        if n == want_router:
+            break
+    out = _profile_summary(prof, wall, top)
+    us = sum(u for u, _ in router)
+    out.update(steps_profiled=i + 1, router_launches=n,
+               router_launches_want=want_router, router_ms=us / 1e3,
+               router_ms_per_launch=us / 1e3 / n if n else None,
+               router_share=us / 1e3 / out["wall_ms"])
+    return params, opt, out
+
+
+def _train_reduced_equal(torch, M, cfg, spec, seed, dev):
+    """Phase 12 (d) at reduced size: two runs of ``spec["reduced_steps"]``
+    steps from the seed on the card; are their parameters bit-equal?"""
+    from repro_torch.train.train_step import make_train_step
+
+    runs = []
+    for _ in range(2):
+        init, step_fn = make_train_step(cfg)
+        p = M.init_params(cfg, seed=seed, device=dev)
+        p, _, hist = _run_steps(torch, step_fn, p, init(p), cfg,
+                                spec["small"], seed,
+                                range(spec["reduced_steps"]), dev)
+        runs.append((p, [(r["loss"], r["grad_norm"]) for r in hist]))
+    (a, ha), (b, hb) = runs
+    return {"arch": cfg.name, "router": cfg.router,
+            "steps": spec["reduced_steps"], "metrics_equal": ha == hb,
+            "params_equal": all(torch.equal(x, y) for x, y in
+                                zip(M.leaves(a), M.leaves(b)))}
+
+
+def _train_card_vs_cpu(torch, M, moe, cfg, spec, seed, dev):
+    """Phase 12 (e): one reduced model in float32 compute, the same
+    carried parameters, ``spec["card_vs_cpu_steps"]`` steps on the CPU
+    and on the card: loss and grad_norm within the tolerance; the
+    router's flows on the card bit-equal to the plain version on the CPU
+    on the same logits."""
+    from repro_torch.train.train_step import make_train_step
+
+    tol = spec["card_vs_cpu_tol"]
+    small = spec["small"]
+    p_cpu = M.init_params(cfg, seed=seed, device="cpu")
+    p_dev = M.map_params(lambda t: t.to(dev, copy=True), p_cpu)
+    hist = {}
+    taps, untap = _tap_router(moe, {small["seq_len"] * small["batch"]})
+    try:
+        for where, p, d in (("cpu", p_cpu, torch.device("cpu")),
+                            ("card", p_dev, dev)):
+            init, step_fn = make_train_step(cfg, lr=spec["small_lr"],
+                                            warmup=1)
+            _, _, h = _run_steps(torch, step_fn, p, init(p), cfg, small,
+                                 seed, range(spec["card_vs_cpu_steps"]), d)
+            hist[where] = [(r["loss"], r["grad_norm"]) for r in h]
+            if where == "cpu":
+                taps.clear()
+    finally:
+        untap()
+    close = all(np.allclose(a, b, **tol)
+                for a, b in zip(hist["card"], hist["cpu"]))
+    flows = _router_flows_equal(torch, moe, taps)
+    res = {"arch": cfg.name, "router": cfg.router, "card": hist["card"],
+           "cpu": hist["cpu"], "metrics_ok": bool(close), "tol": tol,
+           "flows": flows}
+    res["ok"] = close and all(f["equal"] for f in flows.values()) and (
+        len(flows) == 1 if cfg.num_experts else not flows)
+    return res
+
+
+def _trainer_on_card(torch, cfg, spec, seed, dev):
+    """Phase 12 (f): the ``Trainer`` on the card. Kill and resume (8 steps
+    against 4, a dropped object, and a new ``Trainer`` resuming at step
+    4 for 4 more: the last 4 losses bit-equal), then the reference's
+    loss-decrease check. Checkpoints under ``build/`` of the checkout."""
+    import shutil
+
+    from repro_torch.train.trainer import Trainer
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(base, ignore_errors=True)
+    r = spec["resume"]
+    kw = dict(seq_len=r["seq_len"], batch_size=r["batch"],
+              ckpt_every=r["ckpt_every"], seed=seed, device=dev)
+    t0 = time.perf_counter()
+    full = Trainer(cfg, str(base / "full"), **kw).run(2 * r["ckpt_every"])
+    half = Trainer(cfg, str(base / "half"), **kw)
+    half.run(r["ckpt_every"])
+    del half
+    resumed = Trainer(cfg, str(base / "half"), **kw)
+    start = resumed.step
+    rest = resumed.run(r["ckpt_every"])
+    want = [h["loss"] for h in full[r["ckpt_every"]:]]
+    got = [h["loss"] for h in rest]
+    d = spec["decrease"]
+    hist = Trainer(cfg, str(base / "decrease"), seq_len=d["seq_len"],
+                   batch_size=d["batch"], lr=d["lr"], warmup=d["warmup"],
+                   ckpt_every=10 * d["steps"], seed=seed,
+                   device=dev).run(d["steps"])
+    first = float(np.mean([h["loss"] for h in hist[:5]]))
+    last = float(np.mean([h["loss"] for h in hist[-5:]]))
+    res = {"arch": cfg.name, "router": cfg.router, "resumed_at": start,
+           "losses_full": want, "losses_resumed": got,
+           "resume_equal": start == r["ckpt_every"] and got == want,
+           "decrease": {"first5": first, "last5": last,
+                        "ok": last < first - 0.1, "steps": d["steps"]},
+           "s": time.perf_counter() - t0}
+    shutil.rmtree(base, ignore_errors=True)
+    res["ok"] = res["resume_equal"] and res["decrease"]["ok"]
+    return res
+
+
+def phase_train(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The training path (see the module docstring, phase 12)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.train.train_step import make_train_step
+
+    spec = SIZES["train"]
+    seed = ctx["seed"]
+    res = {"card": smi_line()}
+    record["phases"]["train"] = res
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["memory_before"] = torch.cuda.memory_allocated()
+
+    # (a) full width, 4 layers, float32 masters and AdamW state on the card
+    base = ARCHS[spec["arch"]]
+    if spec.get("reduce"):
+        base = reduced(base)
+    cfg = base.with_(num_layers=spec["num_layers"], router="pushrelabel")
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = M.init_params(cfg, gen, device=dev)
+    opt_init, step_fn = make_train_step(cfg)
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    lv = M.leaves(params)
+    flops = model_flops(cfg, ShapeConfig("step", spec["seq_len"],
+                                         spec["batch"], "train"), 1)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in M.leaves(tree))
+    res["build"] = {
+        "s": time.perf_counter() - t0, "arch": cfg.name,
+        "num_layers": cfg.num_layers, "moe_layers": n_moe,
+        "remat": cfg.remat, "optimizer": cfg.optimizer,
+        "parameters": sum(t.numel() for t in lv),
+        "active_parameters": flops["n_params_active"],
+        "params_bytes": nbytes(params), "m_bytes": nbytes(opt.m),
+        "v_bytes": nbytes(opt.v),
+        "dtypes": sorted({str(t.dtype) for t in lv}),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"[12] (a) {json.dumps(res['build'])}")
+    ok = (res["build"]["dtypes"] == ["torch.float32"]
+          and res["build"]["parameters"] == flops["n_params_total"])
+    del lv
+
+    # (b) pushrelabel: warm-up, counted steps, one profiled step
+    params, opt, run = _train_counted(torch, ops, rdev, M, step_fn, params,
+                                      opt, cfg, spec, seed, dev, first=0)
+    want = spec["steps"] * n_moe * 2
+    n_ot = run["launches"]["fused_ot_phases"]
+    run["fused_ot_want"] = want
+    run["model_flops_per_step"] = flops["model_flops_total"]
+    run["model_flops_share_of_bf16_peak"] = (
+        flops["model_flops_total"] / run["step_s_median"] / BF16_FLOP_PER_S)
+    launches["train"] = run["launches"]
+    params, opt, run["profile"] = _profile_step(
+        torch, step_fn, params, opt,
+        [_train_batch(torch, cfg, spec, seed, spec["steps"] + 1 + i, dev)
+         for i in range(PROFILER_TRIES)], 2 * n_moe)
+    run["ok"] = bool(run["finite"] and n_ot == want
+                     and sum(run["syncs"].values()) == 0
+                     and run["masters_changed"] == run["masters"])
+    res["pushrelabel"] = run
+    log(f"[12] (b) pushrelabel: {json.dumps(run)}")
+    ok &= run["ok"]
+    warm_b = run["warm_up"]
+
+    # (c) the same steps under topk, from (b)'s parameters and state
+    t_cfg = cfg.with_(router="topk")
+    _, t_step = make_train_step(t_cfg)
+    first = spec["steps"] + 1 + PROFILER_TRIES
+    params, opt, trun = _train_counted(torch, ops, rdev, M, t_step, params,
+                                       opt, t_cfg, spec, seed, dev,
+                                       first=first)
+    params, opt, trun["profile"] = _profile_step(
+        torch, t_step, params, opt,
+        [_train_batch(torch, t_cfg, spec, seed, first + 1 + spec["steps"],
+                      dev)], 0)
+    trun["ok"] = bool(trun["launches"]["fused_ot_phases"] == 0)
+    res["topk"] = trun
+    log(f"[12] (c) topk: {json.dumps(trun)}")
+    ok &= trun["ok"]
+
+    # (d) determinism: the first step again from a rebuild
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = M.init_params(cfg, gen, device=dev)
+    opt = opt_init(params)
+    params, opt, again = _run_steps(torch, step_fn, params, opt, cfg, spec,
+                                    seed, [0], dev)
+    det = {"first_step": again[0], "warm_up_b": warm_b,
+           "bit_equal": (again[0]["loss"] == warm_b["loss"]
+                         and again[0]["grad_norm"] == warm_b["grad_norm"])}
+    del params, opt, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = reduced(ARCHS[spec["arch"]]).with_(router="pushrelabel")
+    det["reduced"] = _train_reduced_equal(torch, M, small, spec, seed, dev)
+    det["ok"] = bool(det["bit_equal"] and det["reduced"]["params_equal"]
+                     and det["reduced"]["metrics_equal"])
+    res["determinism"] = det
+    log(f"[12] (d) {json.dumps(det)}")
+    ok &= det["ok"]
+
+    # (e) card against CPU, reduced models, float32 compute
+    res["card_vs_cpu"] = []
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        for arch, router in spec["card_vs_cpu"]:
+            rc = reduced(ARCHS[arch])
+            if router:
+                rc = rc.with_(router=router)
+            r = _train_card_vs_cpu(torch, M, moe, rc, spec, seed, dev)
+            log(f"[12] (e) {json.dumps(r)}")
+            res["card_vs_cpu"].append(r)
+            ok &= r["ok"]
+    finally:
+        M.COMPUTE_DTYPE = saved
+
+    # (f) the Trainer on the card
+    res["trainer"] = tr = _trainer_on_card(torch, small, spec, seed, dev)
+    log(f"[12] (f) {json.dumps(tr)}")
+    ok &= tr["ok"]
     return bool(ok)
 
 

@@ -1,8 +1,8 @@
 """The model stack of the port: ``layers``, ``attention``, ``moe`` (the
 three routers; ``pushrelabel`` runs the ``fused_ot_phases`` kernel on the
-card), ``mamba``, ``transformer`` (stages of layers), ``model``
-(parameters, prefill, decode) and ``weights`` (parameters carried from
-and to the JAX reference as numpy arrays).
+card), ``mamba``, ``transformer`` (stages of layers, remat), ``model``
+(parameters, the training loss, prefill, decode) and ``weights``
+(parameters carried from and to the JAX reference as numpy arrays).
 
 Parameters are nested dicts of tensors, as the reference's pytrees are,
 except that a stage holds one dict per period instead of arrays stacked

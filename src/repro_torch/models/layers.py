@@ -1,16 +1,17 @@
-"""Shared neural building blocks: norms, RoPE, GLU MLP, embeddings.
+"""Shared neural building blocks: norms, RoPE, GLU MLP, embeddings,
+chunked cross-entropy.
 
 Port of ``repro.models.layers``. Parameters are plain dicts of tensors;
 every apply function is functional. Initialisers draw from an explicit
 ``torch.Generator`` on the parameters' device, in float32, and cast at
 once to the asked dtype (so building a bf16 model holds one tensor's
-float32 copy at a time). The reference's ``cross_entropy_chunked``
-belongs to training and is not ported here.
+float32 copy at a time).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32):
@@ -70,3 +71,43 @@ def embed_init(gen, vocab, d, dtype=torch.float32):
 
 def embed_lookup(table, ids):
     return table[ids.long()]
+
+
+def _chunk_nll(logits_fn, xs, ls, ms):
+    """Summed masked negative log-likelihood of one chunk."""
+    logits = logits_fn(xs).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * ms)
+
+
+def cross_entropy_chunked(logits_fn, x, labels, mask, chunk: int = 512):
+    """Streaming CE over sequence chunks so the (B, S, V) logits tensor is
+    never materialized in full. ``logits_fn(x_chunk) -> (B, c, V)``.
+
+    The reference scans over the chunks. Here a Python loop does, and
+    while grad is enabled each chunk runs under ``torch.utils.checkpoint``,
+    so backward keeps the chunk's input alone and recomputes its float32
+    logits: without it autograd would hold every chunk's logits at once.
+    S is padded to a multiple of the chunk with masked positions; the
+    result is the masked mean ``tot / max(cnt, 1)``."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(x.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (logits_fn, x[:, sl], labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            nll = checkpoint(_chunk_nll, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            nll = _chunk_nll(*args)
+        tot = tot + nll
+        cnt = cnt + torch.sum(mask[:, sl])
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,13 +1,14 @@
-"""Top-level model assembly: embeddings -> stages -> head, with prefill
-and single-token decode entry points.
+"""Top-level model assembly: embeddings -> stages -> head, with train
+loss, prefill and single-token decode entry points.
 
-Port of ``repro.models.model`` (serving half). The reference casts every
-float32 leaf to bf16 on every call; ``prefill`` and ``decode_step`` here
+Port of ``repro.models.model``. The reference casts every float32 leaf to
+bf16 on every call; ``loss_fn``, ``prefill`` and ``decode_step`` here
 call ``cast_params`` too, which returns a bf16 leaf as it is, so a model
 cast once (``Engine`` casts at construction, or ``init_params`` builds in
-bf16) pays nothing per call. ``loss_fn`` (training) and the dry-run's
-``input_specs`` / ``abstract_params`` / ``decode_cache_specs`` are not
-ported here.
+bf16) pays nothing per call. In ``loss_fn`` the cast of a float32 master
+is an autograd op, so the gradients land on the float32 leaves, as the
+reference's land on its masters. The dry-run's ``input_specs`` /
+``abstract_params`` / ``decode_cache_specs`` are not ported here.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .layers import embed_init, embed_lookup, rmsnorm, rmsnorm_init, _init
+from .layers import (embed_init, embed_lookup, rmsnorm, rmsnorm_init, _init,
+                     cross_entropy_chunked)
 from .transformer import (
     build_stages, encoder_stages, stage_init, stages_forward, stages_prefill,
     stages_decode,
@@ -120,6 +122,31 @@ def _embed_inputs(params, cfg, batch):
                                       device=x.device), mask], dim=1)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     return x, positions, mask, memory
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE. batch['tokens']: (B, S+1) int (inputs||label tail).
+    A scalar float32 tensor that autograd carries back to ``params``."""
+    params = cast_params(params)
+    tokens = batch["tokens"]
+    inp = {**batch, "tokens": tokens[:, :-1]}
+    x, positions, mask, memory = _embed_inputs(params, cfg, inp)
+    stages = build_stages(cfg)
+    x = stages_forward(params["stages"], cfg, stages, x, positions,
+                       memory=memory)
+    x = rmsnorm(params["final_norm"], x)
+    # align labels with the (possibly patch-prefixed) sequence
+    n_prefix = x.shape[1] - (tokens.shape[1] - 1)
+    labels = tokens[:, 1:]
+    if n_prefix:
+        labels = torch.cat([labels.new_zeros((x.shape[0], n_prefix)),
+                            labels], dim=1)
+    head = params["lm_head"]
+
+    def logits_fn(xc):
+        return xc.to(COMPUTE_DTYPE) @ head
+
+    return cross_entropy_chunked(logits_fn, x, labels, mask)
 
 
 def prefill(params, cfg, batch):

@@ -148,7 +148,7 @@ def route_pushrelabel(logits, k, *, phases: int = 24):
     # Unmatched units fall back to the best expert with residual capacity.
     residual = torch.clamp(capacity - flow.sum(dim=0, dtype=torch.int32),
                            min=0)
-    base = probs + (residual[None, :] > 0).float() * 2.0
+    base = probs.detach() + (residual[None, :] > 0).float() * 2.0
     score = flow.float() * 10.0 + base
     rows = torch.arange(t, device=logits.device)
     sels = []
@@ -158,7 +158,10 @@ def route_pushrelabel(logits, k, *, phases: int = 24):
         # consume one flow unit (or burn the fallback bonus) at the pick
         score[rows, pick] -= 10.0
     sel = torch.stack(sels, dim=1)
-    gates = torch.gather(probs, 1, sel.long())
+    # a token may pick one expert several times; the backward of this
+    # gather sums those slots by an accumulating index_put_, which sorts
+    # on the card and is deterministic (torch.gather's scatter_add is not)
+    gates = probs[rows[:, None], sel.long()]
     return sel, _normalize(gates)
 
 

@@ -4,15 +4,18 @@ Port of ``repro.models.transformer``. A model is a list of *stages*; a
 stage is (period_spec, n_periods) where period_spec is a tuple of
 (layer_type, ffn_kind) entries. Jamba's 1:7 hybrid is an 8-layer period
 repeated 9 times. A stage's parameters are a list of n period dicts
-(``{"l0": layer, "l1": ...}``) and its caches likewise; prefill and
-decode run a Python loop over them where the reference scans over a
-stacked period axis. ``apply_moe`` is the reference's single-device
-branch (no mesh); the reference's sharding constraints are the identity
-on one device and are left out.
+(``{"l0": layer, "l1": ...}``) and its caches likewise; the forward,
+prefill and decode run a Python loop over them where the reference scans
+over a stacked period axis. ``apply_moe`` is the reference's
+single-device branch (no mesh); the reference's sharding constraints are
+the identity on one device and are left out.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     attn_init, attn_forward, attn_prefill, attn_decode, cross_attn_forward,
@@ -126,13 +129,30 @@ def apply_layer(lp, cfg, lt, ffn, x, positions, memory=None, causal=True):
     return x
 
 
+def _period_forward(lp, cfg, spec, x, positions, memory, causal):
+    for i, (lt, ffn) in enumerate(spec):
+        x = apply_layer(lp[f"l{i}"], cfg, lt, ffn, x, positions,
+                        memory=memory, causal=causal)
+    return x
+
+
 def stages_forward(stage_params, cfg, stages, x, positions, memory=None,
-                   causal=True):
+                   causal=True, remat=True):
+    """The layers without caches. With ``remat`` and ``cfg.remat``, while
+    grad is enabled, each period runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` of the period body): backward
+    keeps the period's input and runs the period again, the MoE router
+    included (its kernel is deterministic, so it routes as the forward
+    did). Under ``no_grad`` / ``inference_mode`` nothing changes."""
+    ckpt = remat and cfg.remat and torch.is_grad_enabled()
     for (spec, _n), periods in zip(stages, stage_params):
         for lp in periods:
-            for i, (lt, ffn) in enumerate(spec):
-                x = apply_layer(lp[f"l{i}"], cfg, lt, ffn, x, positions,
-                                memory=memory, causal=causal)
+            args = (lp, cfg, spec, x, positions, memory, causal)
+            if ckpt:
+                x = checkpoint(_period_forward, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _period_forward(*args)
     return x
 
 

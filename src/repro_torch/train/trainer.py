@@ -1,0 +1,116 @@
+"""Fault-tolerant training loop.
+
+Port of ``repro.train.trainer``:
+
+- checkpoint/restart: atomic CRC-verified checkpoints every `ckpt_every`
+  steps (async write); on start, resumes from the newest valid checkpoint -
+  a SIGKILL mid-run loses at most `ckpt_every` steps and never corrupts
+  state.
+- deterministic data: batches are a pure function of (seed, step); resume
+  replays the exact stream (see data/pipeline.py).
+- straggler watchdog: per-step wall-time EWMA; steps slower than
+  `straggler_factor` x EWMA are counted and logged (at fleet scale this is
+  the signal used to evict/replace a slow host; here it feeds metrics).
+
+The parameters are drawn by ``init_params(cfg, seed=seed, device=...)``
+and live on ``device`` (the card unless ``device="cpu"``). The
+reference's ``shardings`` (elastic restore onto another mesh) waits for
+the port of ``models/sharding.py``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+from ..checkpoint import checkpointing as ckpt
+from ..core.device import resolve_device
+from ..data.pipeline import synthetic_batch
+from ..models import model as M
+from .train_step import make_train_step
+
+
+class Trainer:
+    def __init__(self, cfg, workdir: str, *, seq_len: int = 128,
+                 batch_size: int = 8, lr: float = 3e-4, seed: int = 0,
+                 ckpt_every: int = 20, grad_accum: int = 1,
+                 total_steps: int = 10_000, warmup: int = 100,
+                 device=None, straggler_factor: float = 3.0):
+        self.cfg = cfg
+        self.workdir = workdir
+        self.seq_len = seq_len
+        self.batch_size = batch_size
+        self.seed = seed
+        self.ckpt_every = ckpt_every
+        self.device = resolve_device(device)
+        self.straggler_factor = straggler_factor
+        self.metrics_log = os.path.join(workdir, "metrics.jsonl")
+        os.makedirs(workdir, exist_ok=True)
+
+        opt_init, self.step_fn = make_train_step(
+            cfg, lr=lr, grad_accum=grad_accum, total_steps=total_steps,
+            warmup=warmup,
+        )
+        params = M.init_params(cfg, seed=seed, device=self.device)
+        opt_state = opt_init(params)
+        start = ckpt.latest_step(os.path.join(workdir, "ckpt"))
+        if start is None:
+            self.step = 0
+        else:
+            like = {"params": params, "opt": opt_state}
+            restored = ckpt.restore(os.path.join(workdir, "ckpt"), start,
+                                    like)
+            params, opt_state = restored["params"], restored["opt"]
+            self.step = start
+        self.params = params
+        self.opt_state = opt_state
+        self._ewma: Optional[float] = None
+        self.straggler_events = 0
+        self._pending_save = None
+
+    def _checkpoint(self):
+        if self._pending_save is not None:
+            self._pending_save.join()
+        self._pending_save = ckpt.save(
+            os.path.join(self.workdir, "ckpt"), self.step,
+            {"params": self.params, "opt": self.opt_state}, async_=True,
+        )
+
+    def run(self, num_steps: int):
+        history = []
+        for _ in range(num_steps):
+            batch_np = synthetic_batch(
+                self.cfg, self.seq_len, self.batch_size,
+                seed=self.seed, step=self.step,
+            )
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch_np.items()}
+            t0 = time.perf_counter()
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch
+            )
+            loss = float(metrics["loss"])  # sync point
+            dt = time.perf_counter() - t0
+            if self._ewma is None:
+                self._ewma = dt
+            else:
+                if dt > self.straggler_factor * self._ewma:
+                    self.straggler_events += 1
+                self._ewma = 0.9 * self._ewma + 0.1 * dt
+            self.step += 1
+            rec = {"step": self.step, "loss": loss, "time_s": dt,
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "stragglers": self.straggler_events}
+            history.append(rec)
+            with open(self.metrics_log, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            if self.step % self.ckpt_every == 0:
+                self._checkpoint()
+        self._checkpoint()
+        if self._pending_save is not None:
+            self._pending_save.join()
+            self._pending_save = None
+        return history

@@ -996,3 +996,102 @@ def test_engine_on_card_equals_cpu(dev, arch, router, monkeypatch):
         assert a.prefill_len == b.prefill_len
         assert a.decode_steps == b.decode_steps
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# -- the training path: loss_fn, make_train_step, the Trainer ----------------
+
+def _train_setup(arch, router, seed=0):
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import model as M
+
+    cfg = reduced(ARCHS[arch])
+    if router:
+        cfg = cfg.with_(router=router)
+    return cfg, M.init_params(cfg, seed=seed, device="cpu")
+
+
+def _train_steps(cfg, params, where, n, lr=1e-3):
+    """``n`` steps of ``make_train_step`` on the pipeline's batches on
+    ``where``, from a copy of ``params``: the parameters and each step's
+    (loss, grad_norm)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import make_train_step
+
+    init, step_fn = make_train_step(cfg, lr=lr, warmup=1)
+    p = M.map_params(lambda t: t.to(where, copy=True), params)
+    opt, hist = init(p), []
+    for s in range(n):
+        b = {k: torch.as_tensor(v, device=where) for k, v in
+             synthetic_batch(cfg, 16, 2, seed=1, step=s).items()}
+        p, opt, m = step_fn(p, opt, b)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return p, hist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,router", [("llama3.2-3b", None),
+                                         ("deepseek-moe-16b",
+                                          "pushrelabel")])
+def test_train_step_on_card_equals_cpu(dev, arch, router, monkeypatch):
+    """Two reduced training steps in float32 compute on the card and on
+    the CPU from the same parameters: loss and grad_norm within rtol =
+    atol = 1e-3."""
+    from repro_torch.models import model as M
+
+    monkeypatch.setattr(M, "COMPUTE_DTYPE", torch.float32)
+    cfg, params = _train_setup(arch, router)
+    _, on_cpu = _train_steps(cfg, params, "cpu", 2)
+    _, on_card = _train_steps(cfg, params, dev, 2)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_router_twice_a_moe_layer_under_remat(dev):
+    """A training step of the reduced MoE model under ``pushrelabel``
+    launches ``fused_ot_phases`` twice a MoE layer (the forward and the
+    recompute of remat), once without remat, and reads nothing back."""
+    from repro_torch.core import device as rdev
+
+    cfg, params = _train_setup("deepseek-moe-16b", "pushrelabel")
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    for remat, per_layer in ((True, 2), (False, 1)):
+        ops.reset_launches()
+        rdev.reset_sync_counts()
+        _train_steps(cfg.with_(remat=remat), params, dev, 1)
+        assert ops.launches["fused_ot_phases"] == per_layer * n_moe
+        assert sum(rdev.sync_counts.values()) == 0
+
+
+@pytest.mark.cuda
+def test_train_runs_on_card_are_bit_equal(dev):
+    """Two runs of three steps from the same parameters on the card give
+    bit-equal metrics and parameters (the gathers' backward sums
+    duplicate indices by a sorting index_put_)."""
+    from repro_torch.models import model as M
+
+    cfg, params = _train_setup("deepseek-moe-16b", "pushrelabel")
+    a, ha = _train_steps(cfg, params, dev, 3)
+    b, hb = _train_steps(cfg, params, dev, 3)
+    assert ha == hb
+    for x, y in zip(M.leaves(a), M.leaves(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_trainer_resumes_on_card(dev, tmp_path):
+    """The ``Trainer`` on the card: 8 steps against 4, a dropped object
+    and a resumed ``Trainer`` for 4 more; the last 4 losses equal."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.train.trainer import Trainer
+
+    cfg = reduced(ARCHS["deepseek-moe-16b"]).with_(router="pushrelabel")
+    kw = dict(seq_len=16, batch_size=2, ckpt_every=4, device=dev)
+    full = Trainer(cfg, str(tmp_path / "a"), **kw).run(8)
+    half = Trainer(cfg, str(tmp_path / "b"), **kw)
+    half.run(4)
+    del half
+    resumed = Trainer(cfg, str(tmp_path / "b"), **kw)
+    assert resumed.step == 4
+    rest = resumed.run(4)
+    assert [h["loss"] for h in full[4:]] == [h["loss"] for h in rest]
