@@ -171,18 +171,50 @@ Phases, in order; any failure exits non-zero:
      loss-decrease check (40 steps, lr 2e-3, warmup 5: the mean of the
      last 5 losses below the first 5's minus 0.1); 16-23 s of the whole
      script on an H100, within the 90 s it may take;
- 13. one JSON line with every kernel's numbers;
- 14. last line: ``{"ok": true, "device": {...}}``.
+ 13. expert parallelism (``models/sharding.py``, the mesh branch of
+     ``transformer.apply_moe``), on logical mesh shards of the card,
+     after phase 12's model is freed: (a) deepseek-moe-16b at full width
+     in bf16 (as phase 11 builds it), phase 11's 4 prompts (2048 prefill
+     tokens) with 8 new tokens each through ``Engine``, under
+     ``router="pushrelabel"`` and ``"topk"``, each alone and under
+     ``set_mesh`` of a ('data', 'model') = (2, 4) mesh (8 shards), after
+     a warm-up run each: prefill ms, decode ms a step, tokens/s, the
+     memory peak; gates: ``fused_ot_phases`` launched 27 MoE layers x 2
+     'dp' shards a forward pass under the mesh (27 alone), no host read,
+     the eos-free accounting, the mesh run's memory peak within 1 GB of
+     the single-device run's (no expert copied: the blocks are views),
+     the router's flows at the shard's shapes (1024 x 64 at prefill, 2 x
+     64 at decode) bit-equal to the plain version on the CPU, and
+     ``fused_ot_phases`` rows at those shapes against the plain version
+     and the stepped core on the card; a 3-request batch (B does not
+     divide over 'data': the reference's replicated path) under the
+     mesh, 27 launches a pass; (b) float32 compute at full width on the
+     dense layer and 3 MoE layers: prefill under the mesh against the
+     single-device forward applied to each 'dp' shard (the other layers
+     on the whole batch), the 4 requests and the 3, within 1e-4; (c)
+     phase 12's training configuration (full width, 4 layers, float32
+     masters, AdamW, remat, B = 4 x S = 512) under a (2, 2) mesh: a
+     warm-up step and 3 counted steps with 3 MoE layers x 2 shards x 2
+     (forward and recompute) = 12 router launches a step, finite
+     metrics, every master moved, no host read; a rebuild repeats the
+     first step bit for bit; the single-device twin's 3 steps; reduced
+     deepseek-moe-16b (``pushrelabel``) under (2, 2), 2 steps on the card
+     and on the CPU in float32 within rtol = atol = 1e-3, flows
+     bit-equal;
+ 14. one JSON line with every kernel's numbers;
+ 15. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
 each solve of phase 7, phase 8's (a) and (b) together (the serve route),
 each run of phase 9, each sanitized solve of phase 10, each ``Engine``
-run of phase 11 and the counted steps of phase 12 (b) and (c) are
-driven with the launch counts set to 0 just before and read just after;
-the kernels line gives each kernel's launches on its route, on the
-serve route as ``serve_launches``, on the engine's
-(``router="pushrelabel"``) as ``engine_launches`` and on phase 12 (b)'s
-training steps as ``train_launches``. ``profiler_ms`` counts a
+run of phase 11, the counted steps of phase 12 (b) and (c) and each
+``Engine`` run and the counted training steps of phase 13 are driven
+with the launch counts set to 0 just before and read just after; the
+kernels line gives each kernel's launches on its route, on the serve
+route as ``serve_launches``, on the engine's (``router="pushrelabel"``)
+as ``engine_launches``, on phase 12 (b)'s training steps as
+``train_launches`` and on phase 13 (a)'s expert-parallel ``Engine`` run
+(``pushrelabel``, (2, 4) mesh) as ``ep_launches``. ``profiler_ms`` counts a
 profiler session only if it recorded every launch (see there); the
 record keeps each incomplete session under ``profiler_misses``.
 
@@ -296,6 +328,19 @@ SIZES = {
               "resume": {"seq_len": 16, "batch": 2, "ckpt_every": 4},
               "decrease": {"seq_len": 32, "batch": 4, "steps": 40,
                            "lr": 2e-3, "warmup": 5}},
+    # phase 13, expert parallelism: the model-serving path's model under
+    # a ('data', 'model') mesh of logical shards of the card ("reduce"
+    # shrinks it for a rehearsal on the CPU): phase 11's prompts, each
+    # asking for new_tokens, the cache length, the replicated batch (the
+    # first `replicated` requests: B does not divide over 'data'), the
+    # memory peak's allowance over the single-device Engine's; (b) the
+    # float32 check on the dense layer and f32_moe_layers MoE layers and
+    # its tolerance; (c) phase 12's training configuration under
+    # train_mesh for train_steps counted steps
+    "ep": {"arch": "deepseek-moe-16b", "mesh": (2, 4), "new_tokens": 8,
+           "max_len": 528, "replicated": 3, "memory_slack": 1e9,
+           "f32_moe_layers": 3, "f32_tol": 1e-4,
+           "train_mesh": (2, 2), "train_steps": 3},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -665,7 +710,15 @@ def main() -> int:
     log(f"[12] phase 12 took {time.monotonic() - t12:.1f} s; done at "
         f"{time.monotonic() - t_start:.0f} s")
 
-    # -- 13. kernels line -----------------------------------------------
+    # -- 13. expert parallelism, counted ---------------------------------
+    t13 = time.monotonic()
+    if not phase_ep(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("expert parallelism")
+    record["phases"]["ep"]["phase_s"] = time.monotonic() - t13
+    log(f"[13] phase 13 took {time.monotonic() - t13:.1f} s; done at "
+        f"{time.monotonic() - t_start:.0f} s")
+
+    # -- 14. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -679,24 +732,31 @@ def main() -> int:
             "serve_launches": launches["serve"][name],
             "engine_launches": launches["engine"][name],
             "train_launches": launches["train"][name],
+            "ep_launches": launches["ep"][name],
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
                else {})})
     # fused_ot_phases at the pushrelabel router's shapes; its launches are
-    # the Engine run's (phase 11 (c))
+    # the Engine run's (phase 11 (c)), then the expert-parallel Engine
+    # run's (phase 13 (a), the shapes of a 'dp' shard)
     source, replaces = KERNELS["fused_ot_phases"]
-    for row in record["phases"]["models"]["router_rows"]:
-        kernels.append({
-            "name": "fused_ot_phases", "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches["engine"]["fused_ot_phases"],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "ok": row["ok"], "shape": row["shape"], "k": row["k"],
-            "path": "engine (pushrelabel router)",
-            "engine_launches": launches["engine"]["fused_ot_phases"],
-            "train_launches": launches["train"]["fused_ot_phases"],
-            "stepped_ms": row["stepped_ms"]})
+    for phase, route, path in (
+            ("models", "engine", "engine (pushrelabel router)"),
+            ("ep", "ep", None)):
+        for row in record["phases"][phase]["router_rows"]:
+            kernels.append({
+                "name": "fused_ot_phases", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches[route]["fused_ot_phases"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "ok": row["ok"],
+                "shape": row["shape"], "k": row["k"],
+                "path": path or row["path"],
+                "engine_launches": launches["engine"]["fused_ot_phases"],
+                "train_launches": launches["train"]["fused_ot_phases"],
+                "ep_launches": launches["ep"]["fused_ot_phases"],
+                "stepped_ms": row["stepped_ms"]})
     record["kernels"] = kernels
     record["launches"] = launches
     record["ot_launches"] = ot_launches
@@ -705,7 +765,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[13] record written to {args.out}")
+    log(f"[14] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2759,18 +2819,25 @@ def _decode_vs_prefill_f32(torch, M, cfg, prompt, seed, dev):
     return out
 
 
+def _left_padded(torch, reqs, dev):
+    """The requests' prompts left-padded with 0 to the longest, as
+    ``Engine.run_batch`` pads them: (B, plen) int32 on ``dev``."""
+    plen = max(len(p) for p, _ in reqs)
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, (p, _) in enumerate(reqs):
+        toks[i, plen - len(p):] = p
+    return torch.as_tensor(toks, device=dev)
+
+
 def _profile_decode(torch, M, engine, reqs, top: int = 8):
     """One decode step of the Engine's batch under ``torch.profiler``:
     device time by kernel (the ``top`` largest), their sum against the
     step's wall time (the busy share)."""
     cfg, dev = engine.cfg, engine.device
-    plen = max(len(p) for p, _ in reqs)
-    toks = np.zeros((len(reqs), plen), np.int32)
-    for i, (p, _) in enumerate(reqs):
-        toks[i, plen - len(p):] = p
+    toks = _left_padded(torch, reqs, dev)
+    plen = toks.shape[1]
     with torch.inference_mode():
-        caches, logits = M.prefill(engine.params, cfg, {
-            "tokens": torch.as_tensor(toks, device=dev)})
+        caches, logits = M.prefill(engine.params, cfg, {"tokens": toks})
         caches = M.pad_caches(cfg, caches, engine.max_len)
         cur = torch.argmax(logits, -1)[:, None].to(torch.int32)
         M.decode_step(engine.params, cfg, caches, cur, plen)   # warm
@@ -3144,12 +3211,16 @@ def _train_reduced_equal(torch, M, cfg, spec, seed, dev):
                                 zip(M.leaves(a), M.leaves(b)))}
 
 
-def _train_card_vs_cpu(torch, M, moe, cfg, spec, seed, dev):
+def _train_card_vs_cpu(torch, M, moe, cfg, spec, seed, dev,
+                       mesh_shape=None):
     """Phase 12 (e): one reduced model in float32 compute, the same
     carried parameters, ``spec["card_vs_cpu_steps"]`` steps on the CPU
     and on the card: loss and grad_norm within the tolerance; the
     router's flows on the card bit-equal to the plain version on the CPU
-    on the same logits."""
+    on the same logits. With ``mesh_shape`` (phase 13 (c)) each run is
+    under a ('data', 'model') mesh of that shape on its own device."""
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import sharding
     from repro_torch.train.train_step import make_train_step
 
     tol = spec["card_vs_cpu_tol"]
@@ -3157,10 +3228,15 @@ def _train_card_vs_cpu(torch, M, moe, cfg, spec, seed, dev):
     p_cpu = M.init_params(cfg, seed=seed, device="cpu")
     p_dev = M.map_params(lambda t: t.to(dev, copy=True), p_cpu)
     hist = {}
-    taps, untap = _tap_router(moe, {small["seq_len"] * small["batch"]})
+    # the router's tokens: a 'dp' shard's under a mesh
+    taps, untap = _tap_router(moe, {small["seq_len"] * small["batch"]
+                                    // (mesh_shape or (1,))[0]})
     try:
         for where, p, d in (("cpu", p_cpu, torch.device("cpu")),
                             ("card", p_dev, dev)):
+            if mesh_shape is not None:
+                sharding.set_mesh(make_small_mesh(
+                    mesh_shape, ("data", "model"), devices=d))
             init, step_fn = make_train_step(cfg, lr=spec["small_lr"],
                                             warmup=1)
             _, _, h = _run_steps(torch, step_fn, p, init(p), cfg, small,
@@ -3170,12 +3246,14 @@ def _train_card_vs_cpu(torch, M, moe, cfg, spec, seed, dev):
                 taps.clear()
     finally:
         untap()
+        if mesh_shape is not None:
+            sharding.set_mesh(None)
     close = all(np.allclose(a, b, **tol)
                 for a, b in zip(hist["card"], hist["cpu"]))
     flows = _router_flows_equal(torch, moe, taps)
     res = {"arch": cfg.name, "router": cfg.router, "card": hist["card"],
            "cpu": hist["cpu"], "metrics_ok": bool(close), "tol": tol,
-           "flows": flows}
+           "flows": flows, "mesh": mesh_shape}
     res["ok"] = close and all(f["equal"] for f in flows.values()) and (
         len(flows) == 1 if cfg.num_experts else not flows)
     return res
@@ -3357,6 +3435,281 @@ def phase_train(torch, ops, rdev, dev, record, ctx, launches) -> bool:
     res["trainer"] = tr = _trainer_on_card(torch, small, spec, seed, dev)
     log(f"[12] (f) {json.dumps(tr)}")
     ok &= tr["ok"]
+    return bool(ok)
+
+
+def _per_shard_moe(torch, T, dp):
+    """(the original, a stand-in) of ``transformer.apply_moe``: the
+    stand-in runs it without a mesh on each of ``dp`` batch shards (on
+    the whole batch when B does not divide), the single-device forward
+    that the mesh branch must equal; every layer outside the MoE runs on
+    the whole batch, as under the mesh."""
+    orig = T.apply_moe
+
+    def split(p, cfg, x):
+        if x.shape[0] % dp:
+            return orig(p, cfg, x)
+        return torch.cat([orig(p, cfg, xs) for xs in torch.chunk(x, dp)])
+    return orig, split
+
+
+def _ep_f32(torch, M, T, sharding, cfg, mesh, reqs, seed, dev):
+    """Phase 13 (b): float32 compute at full width on the dense layer and
+    ``f32_moe_layers`` MoE layers: prefill's last logits and every cache
+    under the mesh against the single-device forward applied to each
+    'dp' shard, on the requests (split) and on the first ``replicated``
+    of them (B does not divide: the single-device forward itself)."""
+    spec = SIZES["ep"]
+    cut = cfg.with_(num_layers=cfg.first_dense_layers
+                    + spec["f32_moe_layers"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    out = {"num_layers": cut.num_layers, "tol": spec["f32_tol"]}
+    try:
+        params = M.init_params(cut, gen, device=dev, dtype=torch.float32)
+        for name, rs in (("split", reqs),
+                         ("replicated", reqs[:spec["replicated"]])):
+            toks = _left_padded(torch, rs, dev)
+            with torch.inference_mode():
+                sharding.set_mesh(mesh)
+                try:
+                    got = M.prefill(params, cut, {"tokens": toks})
+                finally:
+                    sharding.set_mesh(None)
+                orig, split = _per_shard_moe(torch, T, mesh.shape["data"])
+                T.apply_moe = split
+                try:
+                    want = M.prefill(params, cut, {"tokens": toks})
+                finally:
+                    T.apply_moe = orig
+            diffs = [float((a.float() - b.float()).abs().max())
+                     for a, b in zip(M.leaves(got), M.leaves(want))]
+            out[name] = {"batch": len(rs), "tokens": int(toks.numel()),
+                         "max_abs_diff_logits": diffs[-1],
+                         "max_abs_diff": max(diffs),
+                         "ok": max(diffs) <= spec["f32_tol"]}
+        del params, got, want
+    finally:
+        M.COMPUTE_DTYPE = saved
+    out["ok"] = out["split"]["ok"] and out["replicated"]["ok"]
+    return out
+
+
+def _ep_train(torch, ops, rdev, M, sharding, base, seed, dev):
+    """Phase 13 (c): phase 12's configuration (full width cut to
+    ``SIZES["train"]["num_layers"]``, float32 masters, AdamW, remat,
+    ``router="pushrelabel"``) under a ``train_mesh`` of logical shards of
+    the card: a warm-up step and ``train_steps`` counted steps; a rebuild
+    from the seed repeats the warm-up step bit for bit; then the
+    single-device twin's steps from there."""
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.train.train_step import make_train_step
+
+    spec = dict(SIZES["train"], steps=SIZES["ep"]["train_steps"])
+    mesh = make_small_mesh(SIZES["ep"]["train_mesh"], ("data", "model"),
+                           devices=dev)
+    dp = mesh.shape["data"]
+    cfg = base.with_(num_layers=spec["num_layers"], router="pushrelabel")
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+
+    def build():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = M.init_params(cfg, gen, device=dev)
+        opt_init, step_fn = make_train_step(cfg)
+        return params, opt_init(params), step_fn
+
+    params, opt, step_fn = build()
+    sharding.set_mesh(mesh)
+    try:
+        params, opt, run = _train_counted(torch, ops, rdev, M, step_fn,
+                                          params, opt, cfg, spec, seed, dev,
+                                          first=0)
+    finally:
+        sharding.set_mesh(None)
+    want = spec["steps"] * n_moe * dp * 2
+    run["fused_ot_want"] = want
+    run["mesh"] = list(SIZES["ep"]["train_mesh"])
+    run["ok"] = bool(run["finite"]
+                     and run["launches"]["fused_ot_phases"] == want
+                     and sum(run["syncs"].values()) == 0
+                     and run["masters_changed"] == run["masters"])
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt, step_fn = build()
+    sharding.set_mesh(mesh)
+    try:
+        params, opt, again = _run_steps(torch, step_fn, params, opt, cfg,
+                                        spec, seed, [0], dev)
+    finally:
+        sharding.set_mesh(None)
+    warm = run["warm_up"]
+    run["rebuilt_first_step"] = again[0]
+    run["bit_equal"] = (again[0]["loss"] == warm["loss"]
+                        and again[0]["grad_norm"] == warm["grad_norm"])
+    params, opt, twin = _train_counted(torch, ops, rdev, M, step_fn, params,
+                                       opt, cfg, spec, seed, dev, first=1)
+    twin["fused_ot_want"] = spec["steps"] * n_moe * 2
+    twin["ok"] = bool(twin["finite"] and twin["launches"]["fused_ot_phases"]
+                      == twin["fused_ot_want"])
+    run["ok"] = bool(run["ok"] and run["bit_equal"])
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, twin
+
+
+def phase_ep(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """Expert parallelism (see the module docstring, phase 13)."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, Request
+
+    spec = SIZES["ep"]
+    res = {"card": smi_line()}
+    record["phases"]["ep"] = res
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["memory_before"] = torch.cuda.memory_allocated()
+
+    # (a) the bf16 model at full width; the Engine under the mesh and
+    # alone, each router
+    cfg = ARCHS[spec["arch"]]
+    if spec.get("reduce"):
+        cfg = reduced(cfg)
+    mesh = make_small_mesh(spec["mesh"], ("data", "model"), devices=dev)
+    dp = mesh.shape["data"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ctx["seed"])
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    res["mesh"] = {"shape": list(spec["mesh"]),
+                   "devices": [str(d) for d in mesh.flat_devices]}
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    rng = np.random.default_rng([ctx["seed"], 11])
+    reqs = [(p, spec["new_tokens"])
+            for p, _ in _model_requests(rng, cfg, SIZES["models"])]
+    plen = max(len(p) for p, _ in reqs)
+    shard_tokens, shard_decode = len(reqs) * plen // dp, len(reqs) // dp
+    no_eos = [None] * len(reqs)
+    ok = True
+
+    def serve(engine, rs, mesh_on, tap_keep=()):
+        if mesh_on:
+            sharding.set_mesh(mesh)
+        try:
+            return _serve_once(torch, ops, rdev, engine, Request, rs,
+                               [None] * len(rs), n_moe, tap_keep=tap_keep)
+        finally:
+            sharding.set_mesh(None)
+
+    for router in ("pushrelabel", "topk"):
+        engine = Engine(cfg.with_(router=router), params,
+                        max_len=spec["max_len"], device=dev)
+        out = {}
+        for where in ("single", "mesh"):
+            mesh_on = where == "mesh"
+            serve(engine, reqs, mesh_on)                  # warm-up
+            keep = ((shard_tokens, shard_decode)
+                    if mesh_on and router == "pushrelabel" else ())
+            run, comps, taps = serve(engine, reqs, mesh_on, keep)
+            passes = run["forward_passes"]
+            n_ot = run["launches"]["fused_ot_phases"]
+            shards = dp if mesh_on else 1
+            run["fused_ot_per_pass"] = n_ot / passes
+            run["fused_ot_want"] = (n_moe * shards * passes
+                                    if router == "pushrelabel" else 0)
+            run["tokens_out"] = [c.tokens.tolist() for c in comps]
+            ok_r = (n_ot == run["fused_ot_want"]
+                    and sum(run["syncs"].values()) == 0
+                    and not _check_accounting(reqs, no_eos, comps, plen))
+            if keep:
+                flows = _router_flows_equal(torch, moe, taps)
+                run["router_flows"] = flows
+                res["router_rows"] = _router_rows(torch, ops, moe, taps,
+                                                  n_ot)
+                for row in res["router_rows"]:
+                    row["path"] = (f"engine, expert parallel "
+                                   f"{tuple(spec['mesh'])}")
+                ok_r &= (len(flows) == 2
+                         and all(f["equal"] for f in flows.values())
+                         and all(r["ok"] for r in res["router_rows"]))
+                launches["ep"] = run["launches"]
+                del taps
+            run["ok"] = bool(ok_r)
+            out[where] = run
+            ok &= ok_r
+        mem = {w: out[w]["max_memory_allocated"] for w in out}
+        out["memory_diff"] = mem["mesh"] - mem["single"]
+        out["memory_ok"] = abs(out["memory_diff"]) <= spec["memory_slack"]
+        out["same_tokens"] = out["mesh"]["tokens_out"] == \
+            out["single"]["tokens_out"]
+        ok &= out["memory_ok"]
+        if router == "pushrelabel":
+            # the replicated batch: B = 3 does not divide over 'data'
+            rep, _, _ = serve(engine, reqs[:spec["replicated"]], True)
+            rep["fused_ot_want"] = n_moe * rep["forward_passes"]
+            rep["fused_ot_per_pass"] = (rep["launches"]["fused_ot_phases"]
+                                        / rep["forward_passes"])
+            rep["ok"] = bool(rep["launches"]["fused_ot_phases"]
+                             == rep["fused_ot_want"]
+                             and sum(rep["syncs"].values()) == 0)
+            out["replicated"] = rep
+            ok &= rep["ok"]
+        res[router] = out
+        for where in [w for w in ("single", "mesh", "replicated")
+                      if w in out]:
+            r = out[where]
+            log(f"[13] (a) {router} {where}: prefill "
+                f"{1e3 * r['prefill_s']:.1f} ms, decode "
+                f"{r['decode_ms_per_step']} ms a step, "
+                f"{r['tokens_per_s']:.1f} tokens/s, fused_ot "
+                f"{r['launches']['fused_ot_phases']} (want "
+                f"{r['fused_ot_want']}, {r['forward_passes']} passes), "
+                f"syncs {r['syncs']}, peak "
+                f"{r['max_memory_allocated']}, ok {r['ok']}")
+        log(f"[13] (a) {router}: memory mesh - single "
+            f"{out['memory_diff']} B (ok {out['memory_ok']}), same tokens "
+            f"{out['same_tokens']}")
+        del engine
+    for row in res.get("router_rows", []):
+        log(f"[13] (a) router row {json.dumps(row)}")
+
+    # (b) float32 at full width on the first layers
+    res["f32"] = _ep_f32(torch, M, T, sharding, cfg, mesh, reqs,
+                         ctx["seed"], dev)
+    log(f"[13] (b) {json.dumps(res['f32'])}")
+    ok &= res["f32"]["ok"]
+    del params, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) training under a mesh, after the serving model is freed
+    run, twin = _ep_train(torch, ops, rdev, M, sharding, cfg, ctx["seed"],
+                          dev)
+    res["train"], res["train_single"] = run, twin
+    log(f"[13] (c) mesh: {json.dumps(run)}")
+    log(f"[13] (c) single-device twin: {json.dumps(twin)}")
+    ok &= run["ok"] and twin["ok"]
+    small = reduced(ARCHS[spec["arch"]]).with_(router="pushrelabel")
+    saved = M.COMPUTE_DTYPE
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        res["train_card_vs_cpu"] = r = _train_card_vs_cpu(
+            torch, M, moe, small, SIZES["train"], ctx["seed"], dev,
+            mesh_shape=spec["train_mesh"])
+    finally:
+        M.COMPUTE_DTYPE = saved
+    log(f"[13] (c) card vs CPU under the mesh: {json.dumps(r)}")
+    ok &= r["ok"]
     return bool(ok)
 
 

@@ -12,6 +12,8 @@ Port of ``repro.analysis.cli``. Passes, in order:
      same buckets again for the same and for other eps values, and, on
      a card, no kernel built or loaded anew after the first solve (the
      torch meaning of the reference's "one program per (shape, k, B)").
+     It runs on the card; ``--device cpu`` asks for the CPU, and
+     without a card and without it the audit raises.
 
 Findings are filtered through the baseline suppressions
 (``baseline.py``); ``--strict`` exits 1 on any unsuppressed finding or
@@ -28,11 +30,14 @@ from .rules import Finding, audit_entries
 
 
 def audit_bucket_ladder(spec_name: str = "assignment", b: int = 16,
-                        mn: int = 8, k: int = 3) -> List[Finding]:
+                        mn: int = 8, k: int = 3,
+                        device=None) -> List[Finding]:
     """Dynamic audit over a real compaction descent.
 
     Solves a mixed-eps batch (half the lanes at eps 0.45, half at 0.02)
-    with chunk size ``k`` on the card (the CPU without one), then checks:
+    with chunk size ``k`` on ``device`` (``core.device.resolve_device``:
+    the card unless the CPU is asked for; it raises without a card), then
+    checks:
 
       * the descent visits at least two buckets;
       * ``sync_counts["chunk"]`` grows by exactly ``stats.dispatches``
@@ -52,24 +57,23 @@ def audit_bucket_ladder(spec_name: str = "assignment", b: int = 16,
     prior = _DEBUG_CHECKS
     set_debug_checks(False)
     try:
-        return _audit_bucket_ladder_plain(spec_name, b, mn, k)
+        return _audit_bucket_ladder_plain(spec_name, b, mn, k, device)
     finally:
         set_debug_checks(prior)
 
 
 def _audit_bucket_ladder_plain(spec_name: str, b: int, mn: int,
-                               k: int) -> List[Finding]:
+                               k: int, device) -> List[Finding]:
     import numpy as np
-    import torch
 
     from ..core import compaction as C
-    from ..core.device import sync_counts
+    from ..core.device import resolve_device, sync_counts
     from ..core.problem import ASSIGNMENT, OT
     from ..kernels import ops
 
     spec = {"assignment": ASSIGNMENT, "ot": OT}[spec_name]
     entry = f"bucket-ladder[{spec_name}]"
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device).type
     findings: List[Finding] = []
 
     rng = np.random.default_rng(0)
@@ -124,9 +128,10 @@ def _audit_bucket_ladder_plain(spec_name: str, b: int, mn: int,
     return findings
 
 
-def collect_findings(dynamic: bool = True
+def collect_findings(dynamic: bool = True, device=None
                      ) -> Tuple[List[Finding], List[str]]:
-    """All findings plus human-readable coverage lines."""
+    """All findings plus human-readable coverage lines; the dynamic audit
+    runs on ``device`` (the card by default)."""
     from . import locks, syncaudit
 
     report: List[str] = []
@@ -153,10 +158,10 @@ def collect_findings(dynamic: bool = True
                           f"({len(t.fields)} shared fields)")
 
     if dynamic:
-        import torch
+        from ..core.device import resolve_device
 
-        findings += audit_bucket_ladder()
-        where = "cuda" if torch.cuda.is_available() else "cpu"
+        where = resolve_device(device).type
+        findings += audit_bucket_ladder(device=where)
         report.append(f"bucket-ladder audit ({where}): a descent, one read "
                       "per chunk, the same buckets for any eps"
                       + (", no kernel rebuilt" if where == "cuda" else ""))
@@ -176,6 +181,10 @@ def main(argv=None) -> int:
                     help="baseline suppressions file")
     ap.add_argument("--list", action="store_true",
                     help="list registered entry points and exit")
+    ap.add_argument("--device", default=None,
+                    help="where the dynamic audit runs: the card by "
+                         "default (an error without one), 'cpu' to ask "
+                         "for the CPU")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -183,7 +192,8 @@ def main(argv=None) -> int:
             print(spec.name)
         return 0
 
-    findings, report = collect_findings(dynamic=not args.no_dynamic)
+    findings, report = collect_findings(dynamic=not args.no_dynamic,
+                                        device=args.device)
     baseline = load_baseline(args.baseline)
     active, suppressed, stale = apply_baseline(findings, baseline)
 

@@ -17,7 +17,10 @@ int16 view (npz has no bf16) and viewed back on restore.
 ``save`` copies every leaf to the host before it returns, as the
 reference's ``jax.device_get`` does: the optimizer updates the tensors
 in place, so a writer thread that read them later would save a later
-step. Restore makes new tensors on the devices of ``like``'s leaves."""
+step. Restore makes new tensors on the devices of ``like``'s leaves, or,
+given ``shardings`` (a tree of ``models.sharding.NamedSharding`` and
+None leaves), places each leaf by its sharding (``sharding.device_put``):
+the elastic path, any mesh whose block counts divide the shapes."""
 from __future__ import annotations
 
 import json
@@ -165,9 +168,31 @@ def _verify(path: str) -> bool:
         return False
 
 
-def restore(directory: str, step: int, like: Any):
+def _shardings_up_to(like, shardings) -> list:
+    """``shardings`` read along ``like``'s structure: one entry (a
+    sharding or None) per tensor leaf of ``like``, in ``_flatten``'s
+    order; a None subtree gives None to every leaf under it."""
+    if like is None:
+        return []
+    if isinstance(like, dict):
+        items = [(v, None if shardings is None else shardings[k])
+                 for k, v in like.items()]
+    elif isinstance(like, (list, tuple)):
+        items = [(v, None if shardings is None else shardings[i])
+                 for i, v in enumerate(like)]
+    else:
+        return [shardings]
+    return [s for v, sh in items for s in _shardings_up_to(v, sh)]
+
+
+def restore(directory: str, step: int, like: Any, *, shardings: Any = None):
     """Restore into the structure of ``like``: each leaf a new tensor on
-    the device of ``like``'s leaf at the same path."""
+    the device of ``like``'s leaf at the same path. With ``shardings`` (a
+    matching tree of ``NamedSharding``), a leaf whose sharding is not
+    None comes back as a ``ShardedTensor`` of the full logical tensor's
+    values: this is the elastic-rescale path."""
+    from ..models.sharding import device_put
+
     path = os.path.join(directory, f"step_{step:010d}")
     if not _verify(path):
         raise IOError(f"checkpoint {path} fails CRC verification")
@@ -176,7 +201,17 @@ def restore(directory: str, step: int, like: Any):
         manifest = json.load(f)
     if manifest["paths"] != [p for p, _ in flat]:
         raise ValueError(f"checkpoint {path} holds another tree")
+    shs = (_shardings_up_to(like, shardings) if shardings is not None
+           else [None] * len(flat))
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        out = [_decode(z[f"a{i}"], manifest["dtypes"][i]).to(t.device)
-               for i, (_, t) in enumerate(flat)]
+        out = []
+        for i, ((_, t), sh) in enumerate(zip(flat, shs)):
+            host = _decode(z[f"a{i}"], manifest["dtypes"][i])
+            if sh is None:
+                out.append(host.to(t.device))
+            else:
+                # one copy onto the mesh's first device; its blocks there
+                # are views of it
+                first = sh.device_at(sh.positions()[0])
+                out.append(device_put(host.to(first), sh))
     return _unflatten(like, iter(out))

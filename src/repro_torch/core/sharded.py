@@ -38,7 +38,7 @@ decides "none" by ``key == 0xFFFFFFFF``.
 
 The fused kernels are whole-instance programs, so matrix placement runs
 the stepped route, as the reference's does. ``lower_sharded_solver`` (an
-AOT artifact of the dry-run) waits for ROADMAP.md Queue 1 item 13.
+AOT artifact of the dry-run) waits for ROADMAP.md Queue 1 item 13d.
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ like the mesh plus its axis names.
 Devices may repeat. D logical shards on one physical device run the
 same schedule as D cards (each shard on its own stream), which is how
 the CPU tests and a one-card machine reach D > 1 (``make_small_mesh``
-with one device). ``make_production_mesh`` serves the dry-run and waits
-for it (ROADMAP.md Queue 1 item 13).
+with one device). ``models/sharding.py`` reads a mesh set with its
+``set_mesh`` for the expert-parallel branch of the MoE layer.
+``make_production_mesh`` serves the dry-run over a production mesh and
+waits for it (ROADMAP.md Queue 1 item 13d).
 """
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ call ``cast_params`` too, which returns a bf16 leaf as it is, so a model
 cast once (``Engine`` casts at construction, or ``init_params`` builds in
 bf16) pays nothing per call. In ``loss_fn`` the cast of a float32 master
 is an autograd op, so the gradients land on the float32 leaves, as the
-reference's land on its masters. The dry-run's ``input_specs`` /
-``abstract_params`` / ``decode_cache_specs`` are not ported here.
+reference's land on its masters. ``input_specs`` / ``abstract_params``
+/ ``decode_cache_specs`` give the shapes and dtypes of the inputs,
+parameters and decode caches as meta and fake tensors, allocating
+nothing, where the reference gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..core.device import resolve_device
 from .layers import (embed_init, embed_lookup, rmsnorm, rmsnorm_init, _init,
@@ -70,7 +73,8 @@ def init_params(cfg, gen: torch.Generator = None, *, seed: int = 0,
                 device=None, dtype=None) -> Dict[str, Any]:
     """Random parameters of ``cfg``, drawn from ``gen`` (a generator on
     ``device``; by default one seeded with ``seed``) in float32 and cast
-    at once to ``dtype`` (the config's ``param_dtype`` by default; pass
+    at once to ``dtype`` (by default the config's ``param_dtype``, with
+    the MoE routers in float32 as the reference keeps them; pass
     ``torch.bfloat16`` for what ``cast_params`` would give, without a
     float32 copy of the model)."""
     dev = resolve_device(device)
@@ -79,18 +83,21 @@ def init_params(cfg, gen: torch.Generator = None, *, seed: int = 0,
         gen.manual_seed(seed)
     elif torch.device(gen.device) != dev:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
+    # at the config's dtype the MoE router is float32, as the reference
+    # keeps it; an asked-for dtype applies to every leaf
+    router_dtype = torch.float32 if dtype is None else dtype
     dtype = _pdtype(cfg) if dtype is None else dtype
     stages = build_stages(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
         "lm_head": _init(gen, (cfg.d_model, cfg.vocab_padded), dtype=dtype),
-        "stages": [stage_init(gen, cfg, spec, n, dtype)
+        "stages": [stage_init(gen, cfg, spec, n, dtype, router_dtype)
                    for spec, n in stages],
     }
     if cfg.family == "audio":
         params["encoder"] = {
-            "stages": [stage_init(gen, cfg, spec, n, dtype)
+            "stages": [stage_init(gen, cfg, spec, n, dtype, router_dtype)
                        for spec, n in encoder_stages(cfg)],
             "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
         }
@@ -188,3 +195,78 @@ def pad_caches(cfg, caches, max_len: int):
         return out
     return [[{li: grow(c) for li, c in period.items()} for period in stage]
             for stage in caches]
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """A stand-in of ``shape`` and ``dtype`` that holds no data."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, seq_len: int, batch: int, kind: str = "train"):
+    """Meta-tensor stand-ins for every model input: the reference's keys,
+    shapes and dtypes (int32 tokens, bf16 frames and patches)."""
+    i32, bf16 = torch.int32, torch.bfloat16
+    if kind == "train":
+        b = {"tokens": _spec((batch, seq_len + 1), i32)}
+    elif kind == "prefill":
+        b = {"tokens": _spec((batch, seq_len), i32)}
+    elif kind == "decode":
+        return {"token": _spec((batch, 1), i32),
+                "pos": _spec((), i32)}
+    else:
+        raise ValueError(kind)
+    if cfg.input_mode == "frames":
+        # encoder frames: precomputed frame embeddings (frontend stub)
+        b["frames"] = _spec((batch, seq_len, cfg.d_model), bf16)
+    if cfg.input_mode == "tokens+patches":
+        b["patches"] = _spec((batch, cfg.num_patch_tokens, cfg.d_model),
+                             bf16)
+        # patches occupy part of the sequence budget
+        toks = max(seq_len - cfg.num_patch_tokens, 8)
+        b["tokens"] = _spec((batch, toks + 1 if kind == "train" else toks),
+                            i32)
+    return b
+
+
+def abstract_params(cfg):
+    """``init_params``' tree as fake tensors (``FakeTensorMode``): every
+    leaf's shape and dtype, nothing allocated."""
+    with FakeTensorMode():
+        return init_params(cfg, seed=0, device="cpu")
+
+
+def decode_cache_specs(cfg, batch_size: int, seq_len: int):
+    """Meta-tensor stand-ins of ``prefill``'s caches for a prefill batch
+    of ``input_specs(cfg, seq_len, batch_size, "prefill")``, built from
+    the config (the reference traces ``prefill``; the routers' data-
+    dependent shapes are not traced here): self-attention K/V (B, S, KvH,
+    Dh) in the compute dtype, cross-attention K/V over the encoder's
+    frames, and the Mamba conv tails (B, 3, ...) and float32 SSD state."""
+    from .mamba import mamba_dims
+
+    specs = input_specs(cfg, seq_len, batch_size, kind="prefill")
+    s = specs["tokens"].shape[1] + (cfg.num_patch_tokens
+                                    if cfg.input_mode == "tokens+patches"
+                                    else 0)
+    b, ct = batch_size, COMPUTE_DTYPE
+    kv = (b, s, cfg.num_kv_heads, cfg.head_dim)
+
+    def layer(lt, ffn):
+        cache = {}
+        if lt in ("attn", "attn_cross"):
+            cache["self_k"], cache["self_v"] = _spec(kv, ct), _spec(kv, ct)
+            if lt == "attn_cross":
+                mem = (b, specs["frames"].shape[1], cfg.num_kv_heads,
+                       cfg.head_dim)
+                cache["cross_k"] = _spec(mem, ct)
+                cache["cross_v"] = _spec(mem, ct)
+        elif lt == "mamba":
+            d_inner, headdim, nheads, d_state = mamba_dims(cfg)
+            cache["mamba"] = (_spec((b, 3, d_inner), ct),
+                              _spec((b, 3, d_state), ct),
+                              _spec((b, 3, d_state), ct),
+                              _spec((b, nheads, headdim, d_state),
+                                    torch.float32))
+        return cache
+    return [[{f"l{i}": layer(lt, ffn) for i, (lt, ffn) in enumerate(spec)}
+             for _ in range(n)] for spec, n in build_stages(cfg)]

@@ -7,8 +7,11 @@
                       k units each, experts demand capacity), solved by a
                       fixed budget of integer push-relabel phases.
 
-Port of ``repro.models.moe`` (the no-mesh path; expert parallelism over
-a mesh is not ported). ``pushrelabel_assign`` is one call of
+Port of ``repro.models.moe``. ``moe_forward`` is the no-mesh path;
+``moe_forward_ep`` is the body of the reference's ``shard_map`` over a
+mesh for one batch shard (experts split along 'tp', partial outputs
+summed where the reference ``psum``s), driven by
+``transformer.apply_moe``. ``pushrelabel_assign`` is one call of
 ``kernels.ops.fused_run_ot_phases``: on the card one launch of the
 ``fused_ot_phases`` kernel runs every phase with no read back to the
 host; on the CPU the same wrapper runs the kernel's plain version. The
@@ -35,12 +38,13 @@ from ..kernels import ops
 from .layers import _init, glu_mlp, glu_mlp_init
 
 
-def moe_init(gen, cfg, dtype=torch.float32):
+def moe_init(gen, cfg, dtype=torch.float32, router_dtype=torch.float32):
     d, e, ffe = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
     p = {
-        # the reference keeps a float32 router and casts it to bf16 on
-        # every call; a model built in bf16 holds those bf16 values
-        "router": _init(gen, (d, e), scale=0.02, dtype=dtype),
+        # the reference keeps a float32 router whatever the parameters'
+        # dtype and casts it to bf16 on every call; a model built in bf16
+        # for serving (router_dtype bf16) holds those bf16 values
+        "router": _init(gen, (d, e), scale=0.02, dtype=router_dtype),
         "w_gate": _init(gen, (e, d, ffe), dtype=dtype),
         "w_up": _init(gen, (e, d, ffe), dtype=dtype),
         "w_down": _init(gen, (e, ffe, d), dtype=dtype),
@@ -263,6 +267,33 @@ def moe_forward(p, cfg, x):
     if cfg.num_shared_experts:
         out = out + glu_mlp(p["shared"], x)
     return out
+
+
+def moe_forward_ep(p, cfg, x, devices, experts):
+    """One batch shard of the expert-parallel branch: x (B, S, d) the
+    shard's tokens; ``devices[t]`` the device of expert block t (the
+    shard's row of the mesh along 'tp'); ``experts[name][t]`` block t of
+    each expert weight ((E / tp, ...), on ``devices[t]``). The router runs
+    once, on ``devices[0]``; each block's ``moe_local_forward`` runs on
+    its device with its expert range [t * E_loc, (t + 1) * E_loc); the
+    partial outputs are summed in t order on ``devices[0]`` (the
+    reference's ``psum``, which recomputes the same routing on every
+    device of the shard: the router is deterministic). Returns (B, S, d)
+    in x's dtype on ``devices[0]``. No shared experts (the caller adds
+    them, as the reference's ``apply_moe`` does)."""
+    b, s, d = x.shape
+    home = devices[0]
+    tokens = x.reshape(b * s, d).to(home)
+    logits = tokens.float() @ p["router"].to(home).float()
+    sel, gates = ROUTERS[cfg.router](logits, cfg.top_k)
+    e_loc = experts["w_gate"][0].shape[0]
+    out = None
+    for t, dev in enumerate(devices):
+        block = {k_: experts[k_][t] for k_ in ("w_gate", "w_up", "w_down")}
+        part = moe_local_forward(block, cfg, tokens.to(dev), sel.to(dev),
+                                 gates.to(dev), t * e_loc, e_loc).to(home)
+        out = part if out is None else out + part
+    return out.reshape(b, s, d).to(x.dtype)
 
 
 def load_balance_stats(logits, sel, num_experts):

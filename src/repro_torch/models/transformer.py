@@ -6,12 +6,19 @@ stage is (period_spec, n_periods) where period_spec is a tuple of
 repeated 9 times. A stage's parameters are a list of n period dicts
 (``{"l0": layer, "l1": ...}``) and its caches likewise; the forward,
 prefill and decode run a Python loop over them where the reference scans
-over a stacked period axis. ``apply_moe`` is the reference's
-single-device branch (no mesh); the reference's sharding constraints are
-the identity on one device and are left out.
+over a stacked period axis. ``apply_moe`` has the reference's two
+branches: without a mesh (or without a 'tp' axis, or with experts that
+do not divide over it) every expert is local; under
+``sharding.set_mesh`` the experts split over 'tp' and the batch over
+'dp' (``moe.moe_forward_ep``), as the reference's ``shard_map`` does.
+The reference's other sharding constraints change no value and are left
+out (``sharding.constrain`` is the identity). What waits for the next
+slice: training from FSDP/TP-sharded leaves (the reference's
+``Trainer(shardings=)``) and the dry-run over a production mesh.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -23,7 +30,8 @@ from .attention import (
 )
 from .layers import glu_mlp, glu_mlp_init, rmsnorm, rmsnorm_init
 from .mamba import mamba_init, mamba_forward, mamba_decode
-from .moe import moe_init, moe_forward
+from . import sharding
+from .moe import moe_init, moe_forward, moe_forward_ep
 
 Spec = Tuple[Tuple[str, Optional[str]], ...]
 
@@ -60,7 +68,7 @@ def encoder_stages(cfg) -> List[Tuple[Spec, int]]:
 # init
 # --------------------------------------------------------------------------
 
-def layer_init(gen, cfg, ltype, ffn, dtype):
+def layer_init(gen, cfg, ltype, ffn, dtype, router_dtype=torch.float32):
     p: Dict[str, Any] = {}
     d = cfg.d_model
     dev = gen.device
@@ -78,25 +86,79 @@ def layer_init(gen, cfg, ltype, ffn, dtype):
         p["mlp"] = glu_mlp_init(gen, d, cfg.d_ff, dtype)
     elif ffn == "moe":
         p["ln2"] = rmsnorm_init(d, dtype, dev)
-        p["moe"] = moe_init(gen, cfg, dtype)
+        p["moe"] = moe_init(gen, cfg, dtype, router_dtype)
     return p
 
 
-def stage_init(gen, cfg, spec: Spec, n: int, dtype) -> List[Dict[str, Any]]:
-    return [{f"l{i}": layer_init(gen, cfg, lt, ffn, dtype)
+def stage_init(gen, cfg, spec: Spec, n: int, dtype,
+               router_dtype=torch.float32) -> List[Dict[str, Any]]:
+    return [{f"l{i}": layer_init(gen, cfg, lt, ffn, dtype, router_dtype)
              for i, (lt, ffn) in enumerate(spec)} for _ in range(n)]
 
 
 # --------------------------------------------------------------------------
-# MoE (the reference's branch without a mesh)
+# MoE dispatch wrapper (expert parallel when a mesh is configured)
 # --------------------------------------------------------------------------
 
 _ROUTED = ("router", "w_gate", "w_up", "w_down")
+_EXPERTS = ("w_gate", "w_up", "w_down")
+# (id(weight), mesh, tp) -> (weakref to the weight, its version, placed)
+_PLACED: Dict[tuple, tuple] = {}
+
+
+def _expert_blocks(w, mesh, tp) -> sharding.ShardedTensor:
+    """``w`` placed by P(tp, None, None) on ``mesh``. Blocks on ``w``'s
+    own device are views. A weight with blocks bound for other devices is
+    placed once and kept while it lives and is not written in place
+    (``_version``); under autograd (a weight that requires grad) it is
+    placed on every call, so the copies carry gradients back."""
+    placed_by = sharding.NamedSharding(mesh, sharding.P(tp, None, None))
+    if all(d == w.device for d in mesh.flat_devices) or (
+            w.requires_grad and torch.is_grad_enabled()):
+        return sharding.device_put(w, placed_by)
+    key = (id(w), mesh, tp)
+    hit = _PLACED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    placed = sharding.device_put(w.detach(), placed_by)
+    _PLACED[key] = (weakref.ref(w, lambda _, k=key: _PLACED.pop(k, None)),
+                    w._version, placed)
+    return placed
+
+
+def _moe_expert_parallel(routed, cfg, x, mesh, tp):
+    """The reference's ``shard_map`` branch: x split along B into the
+    'dp' shards when B divides, else one shard holding the whole batch
+    (the reference replicates it: the decode case); each shard through
+    ``moe_forward_ep`` on its row of the mesh; the outputs concatenated
+    along B on x's device."""
+    grid = sharding.expert_grid(mesh, tp)
+    placed = {k: _expert_blocks(routed[k], mesh, tp) for k in _EXPERTS}
+    at = placed["w_gate"].sharding.device_at
+    split = x.shape[0] % len(grid) == 0
+    shards = torch.chunk(x, len(grid)) if split else (x,)
+    outs = []
+    for row, xs in zip(grid, shards):
+        experts = {k: [placed[k].block(pos) for pos in row]
+                   for k in _EXPERTS}
+        outs.append(moe_forward_ep(routed, cfg, xs, [at(p_) for p_ in row],
+                                   experts).to(x.device))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def apply_moe(p, cfg, x):
+    mesh = sharding.get_mesh()
     routed = {k: p[k] for k in _ROUTED}
-    out = moe_forward(routed, cfg.with_(num_shared_experts=0), x)
+    tp = sharding._STATE["tp"]
+    cfg_r = cfg.with_(num_shared_experts=0)
+    if (
+        mesh is None
+        or tp not in mesh.axis_names
+        or cfg.num_experts % mesh.shape[tp] != 0
+    ):
+        out = moe_forward(routed, cfg_r, x)
+    else:
+        out = _moe_expert_parallel(routed, cfg_r, x, mesh, tp)
     if cfg.num_shared_experts:
         out = out + glu_mlp(p["shared"], x)
     return out

@@ -14,8 +14,11 @@ Port of ``repro.train.trainer``:
 
 The parameters are drawn by ``init_params(cfg, seed=seed, device=...)``
 and live on ``device`` (the card unless ``device="cpu"``). The
-reference's ``shardings`` (elastic restore onto another mesh) waits for
-the port of ``models/sharding.py``.
+reference's ``shardings`` (training from FSDP/TP-sharded leaves, restored
+elastically onto a mesh) waits for ROADMAP.md Queue 1 item 13d; the
+pieces it would use are here: ``models.sharding.param_shardings`` and
+``checkpoint.restore(..., shardings=)``. Under ``sharding.set_mesh`` the
+MoE layers run expert parallel with no change to this loop.
 """
 from __future__ import annotations
 

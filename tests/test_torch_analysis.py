@@ -387,11 +387,13 @@ def test_builtin_findings_are_the_baseline():
 
 def test_repo_strict_audit_passes():
     """The gate as a user runs it: ``python -m repro_torch.analysis
-    --strict``, the dynamic pass included (on the CPU here)."""
+    --strict``, the dynamic pass included (on the CPU, asked for with
+    ``--device cpu``)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     env.pop("REPRO_DEBUG_CHECKS", None)
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis", "--strict"],
+        [sys.executable, "-m", "repro_torch.analysis", "--strict",
+         "--device", "cpu"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "no unsuppressed findings" in out.stdout
@@ -449,8 +451,22 @@ def test_stale_baseline_entry_fails_strict(tmp_path):
 @pytest.mark.parametrize("spec_name", ["assignment", "ot"])
 def test_bucket_ladder_clean(spec_name):
     from repro_torch.analysis.cli import audit_bucket_ladder
-    findings = audit_bucket_ladder(spec_name)
+    findings = audit_bucket_ladder(spec_name, device="cpu")
     assert findings == [], [f.key for f in findings]
+
+
+def test_dynamic_audit_does_not_fall_back_to_the_cpu():
+    """Without a card the dynamic audit raises unless the CPU is asked
+    for; it never carries on on the CPU by itself."""
+    import torch
+    from repro_torch.analysis.cli import audit_bucket_ladder, main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        audit_bucket_ladder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--strict"])
 
 
 def test_bucket_ladder_restores_debug_flag():
@@ -459,7 +475,7 @@ def test_bucket_ladder_restores_debug_flag():
 
     analysis.set_debug_checks(True)
     try:
-        assert audit_bucket_ladder() == []
+        assert audit_bucket_ladder(device="cpu") == []
         assert analysis.debug_checks_enabled()
     finally:
         analysis.set_debug_checks(None)

@@ -1095,3 +1095,109 @@ def test_trainer_resumes_on_card(dev, tmp_path):
     assert resumed.step == 4
     rest = resumed.run(4)
     assert [h["loss"] for h in full[4:]] == [h["loss"] for h in rest]
+
+
+# -- expert parallelism: the mesh branch of apply_moe on one card ------------
+
+def _ep_layer(dev, router, seed=0):
+    """Reduced deepseek-moe-16b's first MoE layer on ``dev`` and a (2, 4)
+    ('data', 'model') mesh of logical shards of it."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import model as M
+
+    cfg = reduced(ARCHS["deepseek-moe-16b"]).with_(router=router)
+    params = M.init_params(cfg, seed=seed, device=dev)
+    mesh = make_small_mesh((2, 4), ("data", "model"), devices=dev)
+    return cfg, params["stages"][1][0]["l0"]["moe"], mesh
+
+
+@pytest.fixture
+def ep_state(monkeypatch):
+    """No mesh after the test; 'dp' / 'tp' as before it."""
+    from repro_torch.models import sharding
+
+    monkeypatch.setattr(sharding, "_STATE", dict(sharding._STATE))
+    yield sharding
+    sharding.set_mesh(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 3])
+def test_mesh_branch_on_card_flows_equal_plain(dev, ep_state, b,
+                                               monkeypatch):
+    """Under a (2, 4) mesh of the card: one ``fused_ot_phases`` launch a
+    'dp' shard (one for the whole batch when B = 3 does not divide) at
+    the shard's T x E, each launch's flow bit-equal to the plain version
+    on the same affinity on the card; the output within 1e-5 of the
+    single-device branch on each shard in float32."""
+    from repro_torch.kernels.fused_phase import fused_ot_phases_ref
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg, layer, mesh = _ep_layer(dev, "pushrelabel")
+    x = torch.randn(b, 16, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    seen = []
+    orig = moe.pushrelabel_assign
+
+    def tapped(affinity, k, capacity, **kw):
+        flow = orig(affinity, k, capacity, **kw)
+        seen.append((affinity.clone(), k, capacity, flow.clone(), kw))
+        return flow
+    monkeypatch.setattr(moe, "pushrelabel_assign", tapped)
+    ep_state.set_mesh(mesh)
+    ops.reset_launches()
+    got = T.apply_moe(layer, cfg, x)
+    torch.cuda.synchronize()
+    ep_state.set_mesh(None)
+    dp = 2 if b % 2 == 0 else 1
+    assert ops.launches["fused_ot_phases"] == dp == len(seen)
+    for aff, k, capacity, flow, kw in seen:
+        assert aff.shape == (b * 16 // dp, cfg.num_experts)
+        t, e = aff.shape
+        c_int = moe.router_costs(aff)[None].contiguous()
+        s0 = moe.router_state(t, e, k, capacity, aff.device)
+        never = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        cap = torch.full((1,), 24, dtype=torch.int32, device=dev)
+        ref = type(s0)(*fused_ot_phases_ref(c_int, *s0, never, cap, k=24,
+                                            max_rounds=8))
+        assert torch.equal(flow, (ref.f_hi + ref.f_lo)[0])
+    monkeypatch.setattr(moe, "pushrelabel_assign", orig)
+    want = torch.cat([T.apply_moe(layer, cfg, xs)
+                      for xs in torch.chunk(x, dp)])
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mesh_branch_on_card_copies_no_expert(dev, ep_state):
+    """Every expert block of a mesh of logical shards of the card is a
+    view of the weight (one storage), and a forward under the mesh
+    allocates no more than a copy-free one would: the peak stays within
+    the weights' bytes of the single-device branch's."""
+    from repro_torch.models import transformer as T
+
+    cfg, layer, mesh = _ep_layer(dev, "topk")
+    for name in ("w_gate", "w_up", "w_down"):
+        w = layer[name]
+        placed = T._expert_blocks(w, mesh, "model")
+        for pos in placed.sharding.positions():
+            blk = placed.block(pos)
+            assert blk.device == w.device
+            assert blk.untyped_storage().data_ptr() == \
+                w.untyped_storage().data_ptr()
+    x = torch.randn(4, 64, cfg.d_model, device=dev)
+    expert_bytes = sum(layer[k].numel() * layer[k].element_size()
+                       for k in ("w_gate", "w_up", "w_down"))
+    peaks = {}
+    for where in ("single", "mesh"):
+        if where == "mesh":
+            ep_state.set_mesh(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        T.apply_moe(layer, cfg, x)
+        torch.cuda.synchronize()
+        peaks[where] = torch.cuda.max_memory_allocated() - base
+        ep_state.set_mesh(None)
+    assert peaks["mesh"] < peaks["single"] + expert_bytes
