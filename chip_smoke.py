@@ -201,20 +201,48 @@ Phases, in order; any failure exits non-zero:
      deepseek-moe-16b (``pushrelabel``) under (2, 2), 2 steps on the card
      and on the CPU in float32 within rtol = atol = 1e-3, flows
      bit-equal;
- 14. one JSON line with every kernel's numbers;
- 15. last line: ``{"ok": true, "device": {...}}``.
+ 14. the dry-run group (``launch/dryrun.py``, ``roofline/``,
+     ``core/sharded.lower_sharded_solver``): (a) ``run_cell`` with
+     ``unroll=False`` at full width on the 16 x 16 production mesh of
+     ``meta`` devices: deepseek-moe-16b ``train_4k`` and ``decode_32k``,
+     qwen3-4b ``prefill_32k``, mamba2-2.7b ``decode_32k``, deepseek-moe-16b
+     ``train_4k`` on the 2 x 16 x 16 mesh and under
+     ``router="pushrelabel"``, every cell ``ok``, each with its GiB a
+     device, the three roofline terms (the plan's counts over the H100
+     SXM's data-sheet rates), the dominant term and its collective
+     records; (b) phase 12's training configuration (full width, 4
+     layers, float32, AdamW, B = 4 x S = 512, ``pushrelabel``) planned on
+     a (1, 1) mesh of the card, then placed and stepped there: the plan's
+     argument bytes against the growth of ``memory_allocated()`` (within
+     the allocator's rounding: 512 B a tensor, and up to 1 MiB more for
+     a tensor of 1 MiB or more), its argument +
+     temp bytes against the growth of ``max_memory_allocated()`` over a
+     step (the ratio reported), its FLOPs equal to ``FlopCounterMode``
+     over a real step, the step's time against the plan's bound, and
+     ``fused_ot_phases`` launched once per custom call of the plan (3
+     MoE layers x forward and remat recompute); (c)
+     ``lower_sharded_solver(1024, 0.05)`` on a logical (2, 2) mesh of the
+     card, its ``.compile()`` (the kernel library), and
+     ``solve_assignment_sharded`` on the same mesh: ``slack_propose``
+     launched on exactly the plan's blocks, one launch a block a round,
+     the result bit-equal to the single-device ``solve_assignment``;
+ 15. one JSON line with every kernel's numbers;
+ 16. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 3-4 (the stepped route), each part of phase 6 (the fused route),
 each solve of phase 7, phase 8's (a) and (b) together (the serve route),
 each run of phase 9, each sanitized solve of phase 10, each ``Engine``
 run of phase 11, the counted steps of phase 12 (b) and (c) and each
-``Engine`` run and the counted training steps of phase 13 are driven
+``Engine`` run and the counted training steps of phase 13, and phase
+14's training step and sharded solve are driven
 with the launch counts set to 0 just before and read just after; the
 kernels line gives each kernel's launches on its route, on the serve
 route as ``serve_launches``, on the engine's (``router="pushrelabel"``)
 as ``engine_launches``, on phase 12 (b)'s training steps as
 ``train_launches`` and on phase 13 (a)'s expert-parallel ``Engine`` run
-(``pushrelabel``, (2, 4) mesh) as ``ep_launches``. ``profiler_ms`` counts a
+(``pushrelabel``, (2, 4) mesh) as ``ep_launches`` and on phase 14's real
+training step and sharded solve as ``dryrun_launches``. ``profiler_ms``
+counts a
 profiler session only if it recorded every launch (see there); the
 record keeps each incomplete session under ``profiler_misses``.
 
@@ -341,6 +369,21 @@ SIZES = {
            "max_len": 528, "replicated": 3, "memory_slack": 1e9,
            "f32_moe_layers": 3, "f32_tol": 1e-4,
            "train_mesh": (2, 2), "train_steps": 3},
+    # phase 14, the dry-run group: (a) full-width cells planned on the
+    # production mesh (arch, shape, run_cell options; "reduce" plans the
+    # smoke shapes on the small mesh for a rehearsal on the CPU); (b)
+    # phase 12's training configuration planned on a (1, 1) mesh of the
+    # card and run there once; (c) the sharded solver's plan and solve
+    # (n, eps, grid)
+    "dryrun": {"cells": [("deepseek-moe-16b", "train_4k", {}),
+                         ("deepseek-moe-16b", "decode_32k", {}),
+                         ("qwen3-4b", "prefill_32k", {}),
+                         ("mamba2-2.7b", "decode_32k", {}),
+                         ("deepseek-moe-16b", "train_4k",
+                          {"multi_pod": True}),
+                         ("deepseek-moe-16b", "train_4k",
+                          {"router": "pushrelabel"})],
+               "solver": (1024, 0.05, (2, 2))},
 }
 
 # kernel -> (source, Pallas kernel it replaces)
@@ -718,7 +761,15 @@ def main() -> int:
     log(f"[13] phase 13 took {time.monotonic() - t13:.1f} s; done at "
         f"{time.monotonic() - t_start:.0f} s")
 
-    # -- 14. kernels line -----------------------------------------------
+    # -- 14. the dry-run group, counted ---------------------------------
+    t14 = time.monotonic()
+    if not phase_dryrun(torch, ops, rdev, dev, record, ctx, launches):
+        return fail("the dry-run group")
+    record["phases"]["dryrun"]["phase_s"] = time.monotonic() - t14
+    log(f"[14] phase 14 took {time.monotonic() - t14:.1f} s; done at "
+        f"{time.monotonic() - t_start:.0f} s")
+
+    # -- 15. kernels line -----------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = dict(kernel_rows[name])
@@ -733,6 +784,7 @@ def main() -> int:
             "engine_launches": launches["engine"][name],
             "train_launches": launches["train"][name],
             "ep_launches": launches["ep"][name],
+            "dryrun_launches": launches["dryrun"].get(name, 0),
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
                else {})})
     # fused_ot_phases at the pushrelabel router's shapes; its launches are
@@ -756,6 +808,8 @@ def main() -> int:
                 "engine_launches": launches["engine"]["fused_ot_phases"],
                 "train_launches": launches["train"]["fused_ot_phases"],
                 "ep_launches": launches["ep"]["fused_ot_phases"],
+                "dryrun_launches": launches["dryrun"].get(
+                    "fused_ot_phases", 0),
                 "stepped_ms": row["stepped_ms"]})
     record["kernels"] = kernels
     record["launches"] = launches
@@ -765,7 +819,7 @@ def main() -> int:
     out = root / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=float))
-    log(f"[14] record written to {args.out}")
+    log(f"[15] record written to {args.out}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3710,6 +3764,269 @@ def phase_ep(torch, ops, rdev, dev, record, ctx, launches) -> bool:
         M.COMPUTE_DTYPE = saved
     log(f"[13] (c) card vs CPU under the mesh: {json.dumps(r)}")
     ok &= r["ok"]
+    return bool(ok)
+
+
+def _dryrun_cells(spec) -> tuple:
+    """Phase 14 (a): each cell through the dry-run's command line,
+    ``python -m repro_torch.launch.dryrun --no-unroll``, at full width on
+    the production mesh (a rehearsal plans the smoke shapes on the small
+    mesh), the cells in parallel processes; their records are read from
+    ``build/chip_smoke_dryrun/``."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    small = bool(spec.get("reduce"))
+    procs = []
+    try:
+        for arch, shape, kw in spec["cells"]:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--no-unroll",
+                   "--out", str(out)]
+            tag = f"{arch}__{shape}__{'mp' if kw.get('multi_pod') else 'sp'}"
+            if kw.get("multi_pod"):
+                cmd.append("--multi-pod")
+            if kw.get("router"):
+                cmd += ["--router", kw["router"]]
+                tag += f"__{kw['router']}"
+            if small:
+                cmd += ["--small", "--smoke"]
+                tag += "__smoke"
+            log_f = open(out / f"{tag}.log", "w")
+            procs.append((arch, shape, kw, tag, log_f, subprocess.Popen(
+                cmd, cwd=str(root), env=env, stdout=log_f,
+                stderr=subprocess.STDOUT)))
+        for *_, proc in procs:
+            proc.wait(timeout=600)
+    finally:
+        for *_, log_f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    rows, ok = [], True
+    for arch, shape, kw, tag, _, proc in procs:
+        path = out / f"{tag}.json"
+        r = json.loads(path.read_text()) if path.exists() else {
+            "ok": False, "error": f"no record (exit {proc.returncode}): "
+            + (out / f"{tag}.log").read_text()[-1500:]}
+        row = {"arch": arch, "shape": shape, **kw, "ok": r["ok"],
+               "plan_s": r.get("compile_s")}
+        if r["ok"] and "roofline" in r:
+            t = r["roofline"]
+            row.update(
+                n_chips=r["n_chips"], mesh=r["mesh"],
+                gib_per_device=r["memory"]["peak_per_device_gb"],
+                memory=r["memory"], t_compute_s=t["t_compute_s"],
+                t_memory_s=t["t_memory_s"],
+                t_memory_adjusted_s=t["t_memory_adjusted_s"],
+                t_collective_s=t["t_collective_s"],
+                dominant=t["dominant"], bound_time_s=t["bound_time_s"],
+                flops_per_device=t["flops_per_device"],
+                bytes_per_device=t["bytes_per_device"],
+                collective_counts=t["collective"]["counts"],
+                moved_bytes=t["collective"]["moved_bytes"],
+                while_ops=t["collective"]["while_ops"],
+                collective_records=len(r["collective_records"]),
+                hlo_flops_ratio=r["hlo_flops_ratio"],
+                recordings=r["plan"]["recordings"],
+                periods_scaled=r["periods_scaled"])
+        else:
+            row["error"] = r.get("error")
+            row["traceback"] = r.get("traceback")
+        log(f"[14] (a) {arch} {shape} {kw or ''}: ok {row['ok']}, "
+            f"{row.get('gib_per_device')} GiB/device, terms compute "
+            f"{row.get('t_compute_s')} s / memory "
+            f"{row.get('t_memory_adjusted_s')} s / collective "
+            f"{row.get('t_collective_s')} s, dominant "
+            f"{row.get('dominant')}, {row.get('collective_records')} "
+            f"collective records, planned in {row['plan_s']} s"
+            + (f"; {row['error']}" if not row["ok"] else ""))
+        rows.append(row)
+        ok &= bool(r["ok"])
+    return rows, ok
+
+
+def allocator_slack(tensors) -> int:
+    """The most the caching allocator's blocks may add to the tensors'
+    bytes: a block below 1 MiB is rounded up to 512 B; a larger one may
+    also keep up to 1 MiB of its segment that is too small to split
+    off."""
+    return sum(512 if t.numel() * t.element_size() < 1 << 20
+               else 512 + (1 << 20) for t in tensors)
+
+
+def _dryrun_against_card(torch, ops, rdev, spec, seed, dev) -> dict:
+    """Phase 14 (b): phase 12's training configuration planned on a (1,
+    1) mesh of the card, then placed and stepped there: argument bytes
+    against the growth of ``memory_allocated``, argument + temp bytes
+    against the step's memory peak, the plan's FLOPs against
+    ``FlopCounterMode`` over a real step, the step's time against the
+    plan's bound, and ``fused_ot_phases`` launches against the plan's
+    custom calls."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.launch.dryrun import plan_step
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import make_train_step
+
+    train = SIZES["train"]
+    base = ARCHS[train["arch"]]
+    if train.get("reduce"):
+        base = reduced(base)
+    cfg = base.with_(num_layers=train["num_layers"], router="pushrelabel")
+    shape = ShapeConfig("step", train["seq_len"], train["batch"], "train")
+    t0 = time.perf_counter()
+    plan = plan_step(cfg, shape, make_small_mesh((1, 1), devices=dev))
+    out = {"plan_s": time.perf_counter() - t0, "arch": cfg.name,
+           "num_layers": cfg.num_layers, "router": cfg.router,
+           "tokens": train["seq_len"] * train["batch"],
+           "plan_memory": plan["memory"],
+           "plan_flops": plan["plan"]["flops_dp_shard"],
+           "plan_bound_time_s": plan["roofline"]["bound_time_s"],
+           "plan_terms": {k: plan["roofline"][k] for k in (
+               "t_compute_s", "t_memory_s", "t_memory_adjusted_s",
+               "t_collective_s", "dominant")},
+           "plan_custom_calls": len(plan["plan"]["custom_calls"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = M.init_params(cfg, gen, device=dev)
+    opt_init, step_fn = make_train_step(cfg)
+    opt = opt_init(params)
+    batch = _train_batch(torch, cfg, train, seed, 0, dev)
+    torch.cuda.synchronize()
+    args = [t for t in M.leaves(params) + M.leaves(opt)
+            + list(batch.values()) if t is not None]
+    placed = torch.cuda.memory_allocated() - m0
+    arg_b = plan["memory"]["argument_bytes"]
+    slack = allocator_slack(args)
+    out["arguments"] = {
+        "plan_bytes": arg_b, "memory_allocated_growth": placed,
+        "tensors": len(args), "allowed": slack,
+        "ok": 0 <= placed - arg_b <= slack}
+    # a warm-up step (step 0), then the measured step: its peak over the
+    # memory before the arguments, its launches and its time
+    params, opt, _ = _run_steps(torch, step_fn, params, opt, cfg, train,
+                                seed, [0], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rdev.reset_sync_counts()
+    params, opt, steps = _run_steps(torch, step_fn, params, opt, cfg, train,
+                                    seed, [1], dev)
+    peak = torch.cuda.max_memory_allocated() - m0
+    launched = dict(ops.launches)
+    planned = arg_b + plan["memory"]["temp_bytes"]
+    out["peak"] = {"plan_argument_plus_temp": planned,
+                   "max_memory_allocated_growth": peak,
+                   "ratio": peak / planned}
+    out["step_s"] = steps[0]["s"]
+    out["step_over_bound"] = steps[0]["s"] / out["plan_bound_time_s"]
+    out["launches"] = launched
+    out["fused_ot_phases"] = {"launched": launched["fused_ot_phases"],
+                              "plan_custom_calls": out["plan_custom_calls"]}
+    with FlopCounterMode(display=False) as fc:
+        params, opt, counted = _run_steps(torch, step_fn, params, opt, cfg,
+                                          train, seed, [2], dev)
+    out["flops"] = {"plan": out["plan_flops"],
+                    "real_step": int(fc.get_total_flops()),
+                    "equal": out["plan_flops"] == int(fc.get_total_flops())}
+    out["finite"] = bool(np.isfinite([s["loss"] for s in steps + counted]
+                                     ).all())
+    out["ok"] = bool(out["arguments"]["ok"] and out["flops"]["equal"]
+                     and launched["fused_ot_phases"]
+                     == out["plan_custom_calls"] > 0 and out["finite"])
+    del params, opt, batch, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launched
+
+
+def _dryrun_solver(torch, ops, spec, seed, dev) -> dict:
+    """Phase 14 (c): ``lower_sharded_solver`` on a logical grid of the
+    card, its ``.compile()``, then ``solve_assignment_sharded`` on the
+    same mesh: the blocks it launches ``slack_propose`` on equal the
+    plan's, one launch a block a round, and the result is bit-equal to
+    the single-device solve."""
+    from repro_torch.core import sharded as S
+    from repro_torch.core.pushrelabel import solve_assignment
+    from repro_torch.launch.mesh import make_small_mesh
+
+    n, eps, grid = spec["solver"]
+    mesh = make_small_mesh(grid, ("data", "model"), devices=dev)
+    plan = S.lower_sharded_solver(n, eps, mesh)
+    compiled = plan.compile()
+    c = torch.as_tensor(np.random.default_rng([seed, 14]).uniform(
+        size=(n, n)).astype(np.float32), device=dev)
+    seen = []
+    orig = S.ops.slack_propose_batched
+
+    def spy(c_int, *a, **kw):
+        seen.append((tuple(c_int.shape), str(c_int.device)))
+        return orig(c_int, *a, **kw)
+    S.ops.slack_propose_batched = spy
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        got = S.solve_assignment_sharded(c, eps, mesh)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    finally:
+        S.ops.slack_propose_batched = orig
+    launched = dict(ops.launches)
+    want = solve_assignment(c, eps, device=dev)
+    per_round = plan.per_round["slack_propose_launches"]
+    blocks = [(tuple(b["shape"]), b["device"]) for b in plan.blocks]
+    rounds = len(seen) // per_round
+    out = {"n": n, "eps": eps, "grid": list(grid), "compile": compiled,
+           "blocks": [b["shape"] for b in plan.blocks],
+           "block_bytes": [b["bytes"] for b in plan.blocks],
+           "rounds": rounds, "launches": launched, "solve_s": solve_s,
+           "blocks_equal": bool(seen) and len(seen) == rounds * per_round
+           and all(seen[r * per_round:(r + 1) * per_round] == blocks
+                   for r in range(rounds)),
+           "bit_equal": all(torch.equal(getattr(got, f), getattr(want, f))
+                            for f in got._fields)}
+    out["ok"] = bool(compiled["built"] and out["blocks_equal"]
+                     and out["bit_equal"]
+                     and launched["slack_propose"] == len(seen))
+    return out, launched
+
+
+def phase_dryrun(torch, ops, rdev, dev, record, ctx, launches) -> bool:
+    """The dry-run group (see the module docstring, phase 14)."""
+    spec = SIZES["dryrun"]
+    res = {"card": smi_line()}
+    record["phases"]["dryrun"] = res
+    t0 = time.monotonic()
+    res["cells"], ok = _dryrun_cells(spec)
+    res["cells_s"] = time.monotonic() - t0
+    b, train_launches = _dryrun_against_card(torch, ops, rdev, spec,
+                                             ctx["seed"], dev)
+    res["card_check"] = b
+    log(f"[14] (b) {json.dumps(b)}")
+    ok &= b["ok"]
+    c, solver_launches = _dryrun_solver(torch, ops, spec, ctx["seed"], dev)
+    res["solver"] = c
+    log(f"[14] (c) {json.dumps(c)}")
+    ok &= c["ok"]
+    launches["dryrun"] = {k: train_launches.get(k, 0)
+                          + solver_launches.get(k, 0)
+                          for k in set(train_launches) | set(
+                              solver_launches)}
     return bool(ok)
 
 

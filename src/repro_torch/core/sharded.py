@@ -37,12 +37,17 @@ minimum over all n columns), where the reference's ``shard_map`` version
 decides "none" by ``key == 0xFFFFFFFF``.
 
 The fused kernels are whole-instance programs, so matrix placement runs
-the stepped route, as the reference's does. ``lower_sharded_solver`` (an
-AOT artifact of the dry-run) waits for ROADMAP.md Queue 1 item 13d.
+the stepped route, as the reference's does. ``lower_sharded_solver``
+(the reference's AOT artifact for the dry-run) returns the plan of this
+placement for an (n, n) matrix without allocating it: each block's shape,
+bytes and device, the launches and cross-block traffic of a propose
+round, and ``.compile()``, which builds the kernel library for the mesh's
+devices.
 """
 from __future__ import annotations
 
-from typing import List
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +201,88 @@ class BlockGrid:
                               .to(torch.int32))
             merged_key.append(best // n)
         return torch.cat(merged_col, dim=1), torch.cat(merged_key, dim=1)
+
+
+@dataclass(frozen=True)
+class ShardedSolverPlan:
+    """Matrix placement of one (n, n) int32 assignment instance on a
+    mesh, planned without allocating it. ``blocks``: one dict a block
+    (``block`` (i, j), ``device``, global ``rows`` / ``cols`` ranges,
+    the ``shape`` (1, m_loc, n_loc) the block's ``slack_propose`` launch
+    reads, ``bytes``). ``per_round``: ``slack_propose_launches`` (one a
+    block) and ``records``, the round's cross-block traffic: each block's
+    inputs sent from the home device (its rows of ``y_b`` and ``active``,
+    its columns of ``y_a`` and ``avail``, the salt), each block's
+    (column, key) results brought to the home device for the
+    lexicographic merge over column blocks, and the accept's scatter-min
+    over the n columns on the home device. A record's ``crosses_device``
+    says whether its bytes leave a device."""
+    n: int
+    eps: float
+    mesh: object
+    row_axis: str
+    col_axis: str
+    home: str
+    blocks: Tuple[Dict, ...]
+    per_round: Dict
+
+    def compile(self) -> Dict:
+        """Build the ``slack_propose`` library (``ops.build_kernels``, with
+        the port's other kernels) for the mesh's CUDA devices; on CPU or
+        meta devices build nothing and say so."""
+        kinds = {torch.device(b["device"]).type for b in self.blocks}
+        if kinds != {"cuda"}:
+            return {"built": False, "devices": sorted(kinds),
+                    "reason": "no CUDA device in the mesh: on the CPU the "
+                              "plain version of slack_propose runs"}
+        return {"built": True, "devices": ["cuda"],
+                "build_s": ops.build_kernels(), "kernel": "slack_propose"}
+
+
+def lower_sharded_solver(n: int, eps: float, mesh, row_axis: str = "data",
+                         col_axis: str = "model") -> ShardedSolverPlan:
+    """The plan of ``solve_assignment_sharded`` for an (n, n) cost matrix
+    on ``mesh``, without allocating it (the reference lowers the sharded
+    phase loop for the same purpose). Raises as the solve does when n
+    does not divide into the mesh's blocks."""
+    grid = BlockGrid(mesh, row_axis, col_axis, n, n)
+    home = grid.home
+    blocks, records = [], []
+
+    def rec(what, dtype, size, where, dev):
+        records.append({"what": what, "dtype": dtype, "shape": [1, size],
+                        "bytes": size * (8 if dtype == "s64" else 4
+                                         if dtype == "s32" else 1),
+                        "where": where, "crosses_device": dev != home})
+    for i, (r0, r1) in enumerate(grid.rows):
+        for j, (c0, c1) in enumerate(grid.cols):
+            dev = grid.device(i, j)
+            m_loc, n_loc = r1 - r0, c1 - c0
+            blocks.append({"block": (i, j), "device": str(dev),
+                           "rows": (r0, r1), "cols": (c0, c1),
+                           "shape": (1, m_loc, n_loc),
+                           "bytes": 4 * m_loc * n_loc})
+            where = f"block ({i}, {j})"
+            rec("y_b rows to the block", "s32", m_loc, where, dev)
+            rec("active rows to the block", "pred", m_loc, where, dev)
+            rec("y_a columns to the block", "s32", n_loc, where, dev)
+            rec("avail columns to the block", "pred", n_loc, where, dev)
+            rec("salt to the block", "s32", 1, where, dev)
+            rec("propose column to home (merge over column blocks)", "s32",
+                m_loc, where, dev)
+            rec("propose key to home (merge over column blocks)", "s64",
+                m_loc, where, dev)
+    records.append({"what": "accept: scatter-min of the proposing rows over "
+                            "the columns", "dtype": "s32", "shape": [1, n],
+                    "bytes": 4 * n, "where": "home",
+                    "crosses_device": False})
+    return ShardedSolverPlan(
+        n=n, eps=eps, mesh=mesh, row_axis=row_axis, col_axis=col_axis,
+        home=str(home), blocks=tuple(blocks),
+        per_round={"slack_propose_launches": len(blocks),
+                   "records": records,
+                   "bytes_crossing_devices": sum(
+                       r["bytes"] for r in records if r["crosses_device"])})
 
 
 def _stand_in(grid: BlockGrid) -> torch.Tensor:

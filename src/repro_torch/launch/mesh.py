@@ -12,8 +12,10 @@ same schedule as D cards (each shard on its own stream), which is how
 the CPU tests and a one-card machine reach D > 1 (``make_small_mesh``
 with one device). ``models/sharding.py`` reads a mesh set with its
 ``set_mesh`` for the expert-parallel branch of the MoE layer.
-``make_production_mesh`` serves the dry-run over a production mesh and
-waits for it (ROADMAP.md Queue 1 item 13d).
+``make_production_mesh`` builds the reference's 256- and 512-device
+meshes for the dry-run (``launch/dryrun.py``), which plans a step on
+them and runs nothing: by default its devices are ``meta``, so it needs
+no card.
 """
 from __future__ import annotations
 
@@ -112,6 +114,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     shape = tuple(int(s) for s in shape)
     devs = _as_devices(devices, math.prod(shape))
     return Mesh(devices=_nest(devs, shape), axis_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices="meta"
+                         ) -> Mesh:
+    """The reference's production mesh: (16, 16) over ('data', 'model'),
+    or (2, 16, 16) over ('pod', 'data', 'model') with ``multi_pod``.
+    ``devices``: one device repeated (by default ``meta``: a plan's
+    placeholder) or a sequence of 256 / 512."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), devices)
+    return make_mesh((16, 16), ("data", "model"), devices)
 
 
 def make_small_mesh(shape=(2, 4), axes=("data", "model"), devices=None

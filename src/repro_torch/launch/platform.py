@@ -7,7 +7,7 @@ raises without CUDA; "cpu" runs the kernels' plain versions; "tpu" is
 not a backend of the port.
 
 The reference's ``gpu_flags()`` is XLA's flag string; torch has no such
-flags, so it has no counterpart here (ROADMAP.md Queue 1 item 13d).
+flags, so it has no counterpart here and none is invented.
 """
 from __future__ import annotations
 

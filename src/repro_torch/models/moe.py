@@ -19,6 +19,11 @@ reference runs ``transport._phase`` in a ``fori_loop``; with a threshold
 of -1 (the kernel's live-lane test is signed) and ``phase_cap = phases``
 the kernel runs exactly ``phases`` phases, which is that loop.
 
+Every shape in the layer follows from the input's shape (the counts are
+scatter-adds into fixed lengths, not ``bincount``), so the layer runs
+under ``FakeTensorMode``, which the dry-run's plans use: there
+``pushrelabel_assign`` launches nothing and records its launch instead.
+
 Dispatch is sort-based (stable argsort by expert id -> rank within expert
 -> capacity-bounded scatter into a buffer with one sink row that takes
 the dropped entries), no (T, E, C) one-hot tensors. The return of the
@@ -33,8 +38,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 from ..core.transport import OTState
 from ..kernels import ops
+from ..roofline.plan import record_custom_call
 from .layers import _init, glu_mlp, glu_mlp_init
 
 
@@ -118,6 +126,12 @@ def router_state(t: int, e: int, k: int, capacity: int, device) -> OTState:
                    phases=full((1,), 0), rounds=full((1,), 0))
 
 
+def _abstract(t: torch.Tensor) -> bool:
+    """A tensor without data: a fake tensor (``FakeTensorMode``) or one
+    on the meta device."""
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
 def pushrelabel_assign(
     affinity: torch.Tensor,
     k: int,
@@ -131,9 +145,16 @@ def pushrelabel_assign(
     phases on the integer OT instance (supplies = k per token, demands =
     capacity per expert, cost = quantized -affinity). Returns (T, E)
     int32 flow. One ``fused_run_ot_phases`` call: exactly ``phases``
-    phases of at most ``max_rounds`` rounds each."""
+    phases of at most ``max_rounds`` rounds each. A fake or meta
+    ``affinity`` (a dry-run's plan) launches nothing: the flow is zeros of
+    the right shape, and the launch is recorded in the active plan."""
     t, e = affinity.shape
     dev = affinity.device
+    if _abstract(affinity):
+        # a plan (``roofline/plan.py``) records the launch it would make
+        record_custom_call("fused_ot_phases", shape=(t, e), phases=phases,
+                           max_rounds=max_rounds)
+        return torch.zeros((t, e), dtype=torch.int32, device=dev)
     c_int = router_costs(affinity, levels)
     state = router_state(t, e, k, capacity, dev)
     never = torch.full((1,), -1, dtype=torch.int32, device=dev)
@@ -224,7 +245,9 @@ def _combine(y_flat, src, t: int, k: int):
     owner = torch.where(held, src, t).long()
     # slots grouped by token, ascending within a token (stable sort)
     by_tok = torch.argsort(owner, stable=True)
-    counts = torch.bincount(owner, minlength=t + 1)[:t]
+    # a static-shape count (bincount's length depends on the data)
+    counts = torch.zeros(t + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, owner, torch.ones_like(owner))[:t]
     first = torch.cumsum(counts, 0) - counts
     j = torch.arange(k, device=dev)
     pick = first[:, None] + j[None, :]
@@ -298,8 +321,10 @@ def moe_forward_ep(p, cfg, x, devices, experts):
 
 def load_balance_stats(logits, sel, num_experts):
     """Aux metrics: expert load entropy + max/mean load ratio."""
-    counts = torch.bincount(sel.reshape(-1).long(),
-                            minlength=num_experts).float()
+    flat = sel.reshape(-1).long()
+    counts = torch.zeros(num_experts, dtype=torch.int64,
+                         device=sel.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     load = counts / torch.clamp(counts.sum(), min=1.0)
     entropy = -torch.sum(load * torch.log(load + 1e-9))
     imbalance = counts.max() / torch.clamp(counts.mean(), min=1e-9)

@@ -12,9 +12,10 @@ do not divide over it) every expert is local; under
 ``sharding.set_mesh`` the experts split over 'tp' and the batch over
 'dp' (``moe.moe_forward_ep``), as the reference's ``shard_map`` does.
 The reference's other sharding constraints change no value and are left
-out (``sharding.constrain`` is the identity). What waits for the next
-slice: training from FSDP/TP-sharded leaves (the reference's
-``Trainer(shardings=)``) and the dry-run over a production mesh.
+out (``sharding.constrain`` is the identity). FSDP and tensor
+parallelism of the dense layers are planned (``launch/dryrun.py``), not
+executed: ``Trainer(shardings=)`` restores sharded leaves and trains on
+them assembled whole.
 """
 from __future__ import annotations
 

@@ -12,20 +12,29 @@ Port of ``repro.train.trainer``:
   `straggler_factor` x EWMA are counted and logged (at fleet scale this is
   the signal used to evict/replace a slow host; here it feeds metrics).
 
+- elastic restore: pass ``shardings`` (a tree of ``NamedSharding``, as
+  ``models.sharding.param_shardings`` builds it on the *current* mesh) -
+  the checkpoint stores full logical tensors, so a resume goes through
+  ``checkpoint.restore(..., shardings=)`` onto any mesh whose blocks
+  divide the shapes.
+
 The parameters are drawn by ``init_params(cfg, seed=seed, device=...)``
-and live on ``device`` (the card unless ``device="cpu"``). The
-reference's ``shardings`` (training from FSDP/TP-sharded leaves, restored
-elastically onto a mesh) waits for ROADMAP.md Queue 1 item 13d; the
-pieces it would use are here: ``models.sharding.param_shardings`` and
-``checkpoint.restore(..., shardings=)``. Under ``sharding.set_mesh`` the
-MoE layers run expert parallel with no change to this loop.
+and live on ``device`` (the card unless ``device="cpu"``). The port does
+not execute FSDP or tensor parallelism of the dense layers (the
+reference only compiles them for its dry-run): a leaf restored by its
+sharding comes back as a ``ShardedTensor`` and is assembled on
+``device`` (``ShardedTensor.full``), the step trains on full leaves, and
+checkpoints keep full logical tensors. AdamW's moments are placed by
+their parameters' shardings too; Adafactor's factored moments are
+restored whole. Under ``sharding.set_mesh`` the MoE layers run expert
+parallel with no change to this loop.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -33,6 +42,7 @@ from ..checkpoint import checkpointing as ckpt
 from ..core.device import resolve_device
 from ..data.pipeline import synthetic_batch
 from ..models import model as M
+from ..models.sharding import ShardedTensor
 from .train_step import make_train_step
 
 
@@ -41,7 +51,8 @@ class Trainer:
                  batch_size: int = 8, lr: float = 3e-4, seed: int = 0,
                  ckpt_every: int = 20, grad_accum: int = 1,
                  total_steps: int = 10_000, warmup: int = 100,
-                 device=None, straggler_factor: float = 3.0):
+                 device=None, shardings: Any = None,
+                 straggler_factor: float = 3.0):
         self.cfg = cfg
         self.workdir = workdir
         self.seq_len = seq_len
@@ -49,6 +60,7 @@ class Trainer:
         self.seed = seed
         self.ckpt_every = ckpt_every
         self.device = resolve_device(device)
+        self.shardings = shardings
         self.straggler_factor = straggler_factor
         self.metrics_log = os.path.join(workdir, "metrics.jsonl")
         os.makedirs(workdir, exist_ok=True)
@@ -65,14 +77,35 @@ class Trainer:
         else:
             like = {"params": params, "opt": opt_state}
             restored = ckpt.restore(os.path.join(workdir, "ckpt"), start,
-                                    like)
-            params, opt_state = restored["params"], restored["opt"]
+                                    like, shardings=self._restore_shardings(
+                                        opt_state))
+            params = M.map_params(self._full, restored["params"])
+            opt = restored["opt"]
+            opt_state = opt._replace(m=M.map_params(self._full, opt.m),
+                                     v=M.map_params(self._full, opt.v))
             self.step = start
         self.params = params
         self.opt_state = opt_state
         self._ewma: Optional[float] = None
         self.straggler_events = 0
         self._pending_save = None
+
+    def _restore_shardings(self, opt_state):
+        """``shardings`` along the checkpoint's tree: the parameters' and
+        AdamW's moments'; None elsewhere."""
+        if self.shardings is None:
+            return None
+        moments = self.shardings if self.cfg.optimizer == "adamw" else None
+        return {"params": self.shardings,
+                "opt": opt_state._replace(step=None, m=moments if
+                                          opt_state.m is not None else None,
+                                          v=moments, comp_err=None)}
+
+    def _full(self, leaf):
+        """A restored leaf as a full tensor on the trainer's device."""
+        if isinstance(leaf, ShardedTensor):
+            return leaf.full(self.device)
+        return leaf
 
     def _checkpoint(self):
         if self._pending_save is not None:

@@ -1201,3 +1201,70 @@ def test_mesh_branch_on_card_copies_no_expert(dev, ep_state):
         peaks[where] = torch.cuda.max_memory_allocated() - base
         ep_state.set_mesh(None)
     assert peaks["mesh"] < peaks["single"] + expert_bytes
+
+
+# -- the dry-run's plan against the card (chip_smoke phase 14 (b), smaller) --
+
+@pytest.mark.cuda
+def test_plan_of_a_training_step_against_the_card(dev):
+    """deepseek-moe-16b at full width cut to 2 layers (the dense layer and
+    one MoE layer), float32, AdamW, ``pushrelabel``, B = 2 x S = 256,
+    planned on a (1, 1) mesh of the card and run there: the plan's
+    argument bytes within the allocator's rounding of the growth of
+    ``memory_allocated`` (512 B a tensor, up to 1 MiB more for a tensor of
+    1 MiB or more), its argument + temp bytes within 0.9-1.15 of the
+    step's memory peak over the memory before the arguments (a band: the
+    allocator's blocks, cuBLAS and the router's workspace are not in the
+    plan; phase 12's configuration measured 1.0018 in chip_smoke phase
+    14), its FLOPs equal to
+    ``FlopCounterMode`` over the real step, and one ``fused_ot_phases``
+    launch per custom call of the plan."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.dryrun import plan_step
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = ARCHS["deepseek-moe-16b"].with_(num_layers=2, router="pushrelabel")
+    shape = ShapeConfig("step", 256, 2, "train")
+    plan = plan_step(cfg, shape, make_small_mesh((1, 1), devices=dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device=dev)
+    init, step_fn = make_train_step(cfg)
+    opt = init(params)
+
+    def batch(step):
+        return {k: torch.as_tensor(v, device=dev) for k, v in
+                synthetic_batch(cfg, 256, 2, seed=0, step=step).items()}
+    b0 = batch(0)
+    torch.cuda.synchronize()
+    args = [t for t in M.leaves(params) + M.leaves(opt) + [b0["tokens"]]
+            if t is not None]
+    grown = torch.cuda.memory_allocated() - m0
+    arg_b = plan["memory"]["argument_bytes"]
+    slack = sum(512 if t.numel() * t.element_size() < 1 << 20
+                else 512 + (1 << 20) for t in args)
+    assert 0 <= grown - arg_b <= slack
+    step_fn(params, opt, b0)                  # warm-up (workspaces)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step_fn(params, opt, batch(1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    ratio = peak / (arg_b + plan["memory"]["temp_bytes"])
+    assert 0.9 <= ratio <= 1.15, ratio
+    assert ops.launches["fused_ot_phases"] == len(
+        plan["plan"]["custom_calls"]) == 2
+    with FlopCounterMode(display=False) as fc:
+        step_fn(params, opt, batch(2))
+    assert plan["plan"]["flops_dp_shard"] == fc.get_total_flops()

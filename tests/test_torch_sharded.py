@@ -24,7 +24,7 @@ from repro.core.transport import solve_ot_int as jsolve_ot_int
 from repro_torch.core import api as tapi
 from repro_torch.core import sharded as S
 from repro_torch.core.interop import state_from_numpy, state_to_numpy
-from repro_torch.core.pushrelabel import round_costs
+from repro_torch.core.pushrelabel import round_costs, solve_assignment
 from repro_torch.core.transport import ot_prologue
 from repro_torch.kernels.slack_propose import (proposal_keys,
                                                slack_propose_ref)
@@ -340,3 +340,56 @@ def test_integer_solvers_equal_reference(host_threshold):
     for f, v in ref._asdict().items():
         np.testing.assert_array_equal(getattr(got, f)[0].numpy(),
                                       np.asarray(v), err_msg=f)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
+def test_lower_sharded_solver_blocks_equal_the_solve(shape, monkeypatch):
+    """The plan's blocks are the blocks ``solve_assignment_sharded``
+    launches ``slack_propose`` on (shape and device), one launch a block
+    a round."""
+    n, eps = 32, 0.1
+    mesh = _grid_mesh(shape)
+    plan = S.lower_sharded_solver(n, eps, mesh)
+    seen = []
+    orig = S.ops.slack_propose_batched
+
+    def spy(c_int, *a, **kw):
+        seen.append((tuple(c_int.shape), str(c_int.device)))
+        return orig(c_int, *a, **kw)
+    monkeypatch.setattr(S.ops, "slack_propose_batched", spy)
+    rng = np.random.default_rng(sum(shape))
+    c = rng.uniform(size=(n, n)).astype(np.float32)
+    got = S.solve_assignment_sharded(c, eps, mesh)
+    launched = list(seen)   # the single-device solve below launches too
+    single = solve_assignment(c, eps, device="cpu")
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(single, f)), f
+    per_round = plan.per_round["slack_propose_launches"]
+    assert per_round == shape[0] * shape[1] == len(plan.blocks)
+    assert len(launched) % per_round == 0 and launched
+    want = [(tuple(b["shape"]), b["device"]) for b in plan.blocks]
+    for r in range(len(launched) // per_round):
+        assert launched[r * per_round:(r + 1) * per_round] == want
+    assert sum(b["bytes"] for b in plan.blocks) == 4 * n * n
+    rows = [b["rows"] for b in plan.blocks]
+    grid = S.BlockGrid(mesh, "data", "model", n, n)
+    assert sorted(set(rows)) == grid.rows
+
+
+def test_lower_sharded_solver_plan_records_and_cpu_compile():
+    plan = S.lower_sharded_solver(64, 0.05, _grid_mesh((2, 2)))
+    recs = plan.per_round["records"]
+    # each block: its 5 inputs and its 2 results; one scatter-min
+    assert len(recs) == 4 * 7 + 1
+    merge = [r for r in recs if "merge" in r["what"]]
+    assert {(r["dtype"], tuple(r["shape"])) for r in merge} == {
+        ("s32", (1, 32)), ("s64", (1, 32))}
+    assert recs[-1]["shape"] == [1, 64] and recs[-1]["dtype"] == "s32"
+    assert plan.per_round["bytes_crossing_devices"] == 0   # one device
+    out = plan.compile()
+    assert out["built"] is False and out["devices"] == ["cpu"]
+    with pytest.raises(ValueError, match="pad it first"):
+        S.lower_sharded_solver(30, 0.05, _grid_mesh((2, 4)))
+    meta = S.lower_sharded_solver(1 << 20, 0.05, make_small_mesh(
+        (2, 2), devices="meta"))
+    assert meta.blocks[0]["bytes"] == 4 * (1 << 19) ** 2

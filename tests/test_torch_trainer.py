@@ -192,3 +192,43 @@ def test_kill_and_resume_bitwise(tmp_path):
     for a, b in zip(ckpt._flatten(t_full.params),
                     ckpt._flatten(t_resumed.params)):
         assert torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("optimizer,mesh_shape", [("adamw", (2, 4)),
+                                                  ("adamw", (1, 2)),
+                                                  ("adafactor", (2, 4))])
+def test_resume_under_shardings_equals_plain_resume(tmp_path, optimizer,
+                                                    mesh_shape):
+    """A checkpoint written by ``Trainer()`` resumes under
+    ``Trainer(shardings=param_shardings(...))`` on a CPU mesh: the leaves
+    come back assembled on the trainer's device, and the losses after the
+    resume are bit-equal to an unsharded resume's."""
+    import shutil
+
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+
+    cfg = CFG.with_(optimizer=optimizer)
+    kw = dict(seq_len=16, batch_size=2, ckpt_every=2, device="cpu")
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    Trainer(cfg, a, **kw).run(2)
+    shutil.copytree(a, b)
+    plain = Trainer(cfg, a, **kw)
+    saved = dict(sharding._STATE)
+    try:
+        sharding.set_mesh(make_small_mesh(mesh_shape, devices="cpu"))
+        shardings = sharding.param_shardings(M.abstract_params(cfg))
+        placed = Trainer(cfg, b, shardings=shardings, **kw)
+    finally:
+        sharding._STATE.clear()
+        sharding._STATE.update(saved)
+    assert plain.step == placed.step == 2
+    for (pa, x), (pb, y) in zip(ckpt._flatten(plain.opt_state),
+                                ckpt._flatten(placed.opt_state)):
+        assert pa == pb and type(y) is torch.Tensor and torch.equal(x, y)
+    for (_, x), (_, y) in zip(ckpt._flatten(plain.params),
+                              ckpt._flatten(placed.params)):
+        assert type(y) is torch.Tensor and torch.equal(x, y)
+    want = [h["loss"] for h in plain.run(3)]
+    assert [h["loss"] for h in placed.run(3)] == want
