@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
 from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
 from .device import resolve_device
@@ -349,7 +350,36 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
     still primal-feasible with eps-feasible duals, so
     ``dual_feasible()`` / ``additive_gap()`` re-validate each answer.
     """
-    policy, dev = (policy or DispatchPolicy()).on_mesh(device)
+    if not isinstance(instances, dict):
+        instances = list(instances)
+    with _tracing.root("solve", obs) as sp:
+        policy, dev = (policy or DispatchPolicy()).on_mesh(device)
+        if sp is not None:
+            sp.attrs.update(_solve_attrs(spec, instances, policy))
+        return _front_door(spec, instances, eps, policy, dev, sizes=sizes,
+                           keep_state=keep_state, want=want,
+                           deadline=deadline, obs=obs, **prep_kw)
+
+
+def _solve_attrs(spec, instances, policy: DispatchPolicy) -> Dict[str, Any]:
+    """The root ``solve`` span's attributes: problem, B, m, n (the
+    largest instance's), mode and solver. A malformed input gets no
+    sizes here; the front door raises on it."""
+    out = {"problem": spec.name, "mode": policy.resolved_mode(),
+           "solver": policy.solver}
+    if isinstance(instances, dict):
+        shape = tuple(np.shape(instances["c"]))
+    else:
+        sizes = [spec.instance_shape(x) for x in instances]
+        shape = (len(instances),) + (tuple(max(d) for d in zip(*sizes))
+                                     if sizes else (0, 0))
+    if len(shape) == 3:
+        out.update(B=int(shape[0]), m=int(shape[1]), n=int(shape[2]))
+    return out
+
+
+def _front_door(spec, instances, eps, policy: DispatchPolicy, dev, *,
+                sizes, keep_state: bool, want, deadline, obs, **prep_kw):
     if want is None:
         want = policy.want
     if want is not None:
@@ -376,7 +406,7 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
         return _wrap_solution(wspec, inputs, eps, policy, r, stats,
                               sizes=sizes, want=want, solver=solver,
                               predicted=predicted)
-    sols = _solve_ragged(spec, list(instances), eps, policy,
+    sols = _solve_ragged(spec, instances, eps, policy,
                          keep_state=keep_state, want=want,
                          deadline=deadline, obs=obs, device=dev, **prep_kw)
     if want is not None:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import tracing as _tracing
 from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
 
 DEFAULT_BUCKETS: tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -82,15 +83,18 @@ def solve_lockstep(spec, inputs, eps: float, *, sizes=None,
     ``(result, state or None)``, both trimmed to the B real lanes."""
     inputs = spec.canonicalize(inputs, device)
     b = spec.batch_shape(inputs)[0]
-    p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
-                     **prep_kw)
+    with _tracing.span("solve.prepare"):
+        p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
+                         **prep_kw)
     ops = p.ops
-    data, ctx = spec.prologue(ops)
-    ctx = {**ctx, **{k: ops[k] for k in spec.ctx_ops}}
-    state = spec.init_state(data, ctx)
+    with _tracing.span("solve.prologue"):
+        data, ctx = spec.prologue(ops)
+        ctx = {**ctx, **{k: ops[k] for k in spec.ctx_ops}}
+        state = spec.init_state(data, ctx)
     state = spec.run_phases(data, state, int(p.phase_cap.max(initial=0)) + 1)
-    r = spec.trim(spec.epilogue(ctx, state), b)
-    return r, (tree_map(lambda a: a[:b], state) if keep_state else None)
+    with _tracing.span("solve.epilogue"):
+        r = spec.trim(spec.epilogue(ctx, state), b)
+        return r, (tree_map(lambda a: a[:b], state) if keep_state else None)
 
 
 def solve_assignment_batched(c, eps: float, *, sizes=None,

@@ -33,6 +33,7 @@ import torch
 # the serving stack's one monotonic clock: chunk timing and deadline
 # checks share a time base with the scheduler's spans and budgets
 from ..analysis import debug_checks_enabled
+from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
 from .device import host_numpy
 from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
@@ -114,68 +115,90 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
 
     ``obs`` (any object with ``event(name, **fields)``) gets one
     ``"chunk"`` event per dispatch and a ``"deadline-cut"`` event when the
-    budget stops the loop."""
+    budget stops the loop. Each dispatch, its read and its retirement run
+    under a ``driver.chunk`` span (``obs.tracing``).
+
+    Each lane's phase count at its last read is its final one (a
+    converged lane takes no more phases), so the loop also sets
+    ``stats.phases_needed`` / ``lockstep_slot_phases`` from its reads."""
     idx = np.arange(stats.dispatched_batch)
     # the result buffer is born at the first flush, where idx is still the
     # identity, so it never aliases a state a later chunk updates
     buf = None
     cur_d, cur_s = data, state
     ph_prev = np.zeros((stats.dispatched_batch,), np.int64)
+    ph_last = np.zeros((stats.dispatched_batch,), np.int64)
     for _ in range(max_chunks):
-        t_chunk = _now()
-        cur_s = run_fn(cur_d, cur_s)
-        stats.dispatches += 1
-        conv_t, ph_t = conv_fn(cur_d, cur_s)
-        both = host_numpy("chunk", torch.stack([conv_t.to(torch.int32),
-                                                ph_t.to(torch.int32)]))
-        conv, ph = both[0].astype(bool), both[1].astype(np.int64)
-        t_chunk = _now() - t_chunk
-        bb = int(conv.shape[0])
-        # the chunk runs every lane for the max phase delta
-        dph = int((ph - ph_prev).max(initial=0))
-        stats.slot_phases += bb * dph
-        ph_prev = ph
-        live = int((~conv).sum())
-        stats.occupancy.append((bb, live))
-        if obs is not None:
-            obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
-                      phases=dph)
-        if live == 0:
-            buf = _flush(buf, cur_s, idx)
-            break
-        if deadline is not None and _now() + t_chunk >= deadline:
-            # another chunk (estimated by the one that just ran) would
-            # overrun the budget: flush best-so-far state and mark the
-            # lanes that had not terminated. The epilogue is defined on
-            # any phase boundary (the phase cap already ends lanes
-            # unconverged), so the answer is primal-feasible and its
-            # certificate reports the true, larger gap.
-            stats.deadline_hit = True
-            un = np.zeros((stats.dispatched_batch,), bool)
-            un[idx[~conv]] = True
-            stats.unconverged = un
+        with _tracing.span("driver.chunk") as sp:
+            t_chunk = _now()
+            cur_s = run_fn(cur_d, cur_s)
+            stats.dispatches += 1
+            conv_t, ph_t = conv_fn(cur_d, cur_s)
+            both = host_numpy("chunk", torch.stack([conv_t.to(torch.int32),
+                                                    ph_t.to(torch.int32)]))
+            conv, ph = both[0].astype(bool), both[1].astype(np.int64)
+            t_chunk = _now() - t_chunk
+            bb = int(conv.shape[0])
+            # the chunk runs every lane for the max phase delta
+            dph = int((ph - ph_prev).max(initial=0))
+            stats.slot_phases += bb * dph
+            ph_prev = ph
+            ph_last[idx] = ph
+            live = int((~conv).sum())
+            stats.occupancy.append((bb, live))
+            if sp is not None:
+                sp.attrs.update(bucket=bb, live=live, phases=dph)
+                _tracing.add("chunks")
             if obs is not None:
-                obs.event("deadline-cut", bucket=bb, live=live)
-            buf = _flush(buf, cur_s, idx)
-            break
-        nb = pow2_at_least(live)
-        if nb <= bb // 2:
-            # retire: flush all current lanes to the result buffer, then
-            # gather the survivors (padded with one converged lane, whose
-            # predicate is already false) into the next bucket
-            buf = _flush(buf, cur_s, idx)
-            surv = np.flatnonzero(~conv)
-            fill = np.flatnonzero(conv)[:1]
-            sel = np.concatenate([surv, np.repeat(fill, nb - live)])
-            sel_t = torch.as_tensor(sel, device=cur_s[0].device)
-            cur_d = _gather(cur_d, sel_t)
-            cur_s = _gather(cur_s, sel_t)
-            idx = idx[sel]
-            ph_prev = ph[sel]
+                obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
+                          phases=dph)
+            if live == 0:
+                buf = _flush(buf, cur_s, idx)
+                break
+            if deadline is not None and _now() + t_chunk >= deadline:
+                # another chunk (estimated by the one that just ran) would
+                # overrun the budget: flush best-so-far state and mark the
+                # lanes that had not terminated. The epilogue is defined
+                # on any phase boundary (the phase cap already ends lanes
+                # unconverged), so the answer is primal-feasible and its
+                # certificate reports the true, larger gap.
+                stats.deadline_hit = True
+                un = np.zeros((stats.dispatched_batch,), bool)
+                un[idx[~conv]] = True
+                stats.unconverged = un
+                if obs is not None:
+                    obs.event("deadline-cut", bucket=bb, live=live)
+                buf = _flush(buf, cur_s, idx)
+                break
+            nb = pow2_at_least(live)
+            if nb <= bb // 2:
+                # retire: flush all current lanes to the result buffer,
+                # then gather the survivors (padded with one converged
+                # lane, whose predicate is already false) into the next
+                # bucket
+                buf = _flush(buf, cur_s, idx)
+                surv = np.flatnonzero(~conv)
+                fill = np.flatnonzero(conv)[:1]
+                sel = np.concatenate([surv, np.repeat(fill, nb - live)])
+                sel_t = torch.as_tensor(sel, device=cur_s[0].device)
+                cur_d = _gather(cur_d, sel_t)
+                cur_s = _gather(cur_s, sel_t)
+                idx = idx[sel]
+                ph_prev = ph[sel]
     else:
         # phase caps bound every lane, so the loop always breaks
         buf = _flush(buf, cur_s, idx)
+    record_phases(stats, ph_last)
     return buf
+
+
+def record_phases(stats, phases: np.ndarray) -> None:
+    """``phases_needed`` and ``lockstep_slot_phases`` of ``stats`` from
+    the final per-lane phase counts (original order, padded lanes
+    after the real ones)."""
+    real = phases[:stats.batch]
+    stats.phases_needed = int(real.sum())
+    stats.lockstep_slot_phases = stats.batch * int(real.max(initial=0))
 
 
 def spec_fns(spec, k: int):
@@ -225,8 +248,9 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
     if b == 0:
         return (spec.empty_result(m, n, inputs["c"].device),
                 CompactionStats(batch=0, dispatched_batch=0, chunk=k))
-    p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
-                     **prep_kw)
+    with _tracing.span("solve.prepare"):
+        p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
+                         **prep_kw)
     if debug_checks_enabled():
         # the sanitizer: checked prologue, chunk and epilogue, on the
         # stepped route (analysis/checked.py); one more read a chunk
@@ -235,20 +259,19 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
     else:
         prologue, init, chunk, conv, epilogue = spec_fns(spec, k)
     ops = p.ops
-    data, ctx = prologue(ops)
-    ctx = {**ctx, **{kk: ops[kk] for kk in spec.ctx_ops}}
-    state0 = init(data, ctx)
+    with _tracing.span("solve.prologue"):
+        data, ctx = prologue(ops)
+        ctx = {**ctx, **{kk: ops[kk] for kk in spec.ctx_ops}}
+        state0 = init(data, ctx)
     stats = CompactionStats(batch=b, dispatched_batch=p.bp, chunk=k)
     final = _drive(data, state0, chunk, conv,
                    max_chunk_dispatches(p.phase_cap, k), stats,
                    deadline=deadline, obs=obs)
-    r = epilogue(ctx, final)
-    phases = np.asarray(final.phases[:b].cpu(), np.int64)
-    stats.phases_needed = int(phases.sum())
-    stats.lockstep_slot_phases = b * int(phases.max(initial=0))
-    if keep_state:
-        stats.final_state = tree_map(lambda a: a[:b], final)
-    return spec.trim(r, b), stats
+    with _tracing.span("solve.epilogue"):
+        r = epilogue(ctx, final)
+        if keep_state:
+            stats.final_state = tree_map(lambda a: a[:b], final)
+        return spec.trim(r, b), stats
 
 
 def solve_assignment_batched_compacting(c, eps, *, sizes=None,

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..launch.mesh import Mesh, make_mesh
+from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
 from .compaction import (
     DEFAULT_CHUNK,
@@ -79,6 +80,7 @@ from .compaction import (
     _flush,
     _gather,
     max_chunk_dispatches,
+    record_phases,
     solve_compacting,
     spec_fns,
 )
@@ -290,64 +292,73 @@ def _drive_distributed(data, state, run_fn, conv_fn, max_chunks: int,
         if sharded:
             parts = shard_out()
         ph_prev = np.zeros((stats.dispatched_batch,), np.int64)
+        ph_last = np.zeros((stats.dispatched_batch,), np.int64)
         for _ in range(max_chunks):
-            t_chunk = _now()
-            if sharded:
-                outs = shards.map(chunk, parts)
-                parts = [(d, s) for (d, _), (s, _) in zip(parts, outs)]
-                stacked = torch.cat([o.to(dev0) for _, o in outs], dim=1)
-            else:
-                cur_s, stacked = chunk((cur_d, cur_s))
-            stats.dispatches += 1
-            both = host_numpy("chunk", stacked)
-            conv, ph = both[0].astype(bool), both[1].astype(np.int64)
-            t_chunk = _now() - t_chunk
-            bb = int(conv.shape[0])
-            d_now = d0 if sharded else 1
-            stats.devices_per_dispatch.append(d_now)
-            per_dev = (ph - ph_prev).reshape(d_now, bb // d_now)
-            stats.slot_phases += int(
-                (per_dev.max(axis=1) * (bb // d_now)).sum())
-            ph_prev = ph
-            live = int((~conv).sum())
-            stats.occupancy.append((bb, live))
-            if obs is not None:
-                obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
-                          phases=int(per_dev.max(initial=0)), devices=d_now)
-            if live == 0:
-                buf = _flush(buf, full_state(), idx)
-                break
-            if deadline is not None and _now() + t_chunk >= deadline:
-                stats.deadline_hit = True
-                un = np.zeros((stats.dispatched_batch,), bool)
-                un[idx[~conv]] = True
-                stats.unconverged = un
+            with _tracing.span("driver.chunk") as sp:
+                t_chunk = _now()
+                if sharded:
+                    outs = shards.map(chunk, parts)
+                    parts = [(d, s) for (d, _), (s, _) in zip(parts, outs)]
+                    stacked = torch.cat([o.to(dev0) for _, o in outs], dim=1)
+                else:
+                    cur_s, stacked = chunk((cur_d, cur_s))
+                stats.dispatches += 1
+                both = host_numpy("chunk", stacked)
+                conv, ph = both[0].astype(bool), both[1].astype(np.int64)
+                t_chunk = _now() - t_chunk
+                bb = int(conv.shape[0])
+                d_now = d0 if sharded else 1
+                stats.devices_per_dispatch.append(d_now)
+                per_dev = (ph - ph_prev).reshape(d_now, bb // d_now)
+                stats.slot_phases += int(
+                    (per_dev.max(axis=1) * (bb // d_now)).sum())
+                ph_prev = ph
+                ph_last[idx] = ph
+                live = int((~conv).sum())
+                stats.occupancy.append((bb, live))
+                dph = int(per_dev.max(initial=0))
+                if sp is not None:
+                    sp.attrs.update(bucket=bb, live=live, phases=dph,
+                                    devices=d_now)
+                    _tracing.add("chunks")
                 if obs is not None:
-                    obs.event("deadline-cut", bucket=bb, live=live)
-                buf = _flush(buf, full_state(), idx)
-                break
-            nb = pow2_at_least(live)
-            if nb <= bb // 2:
-                cur_s = full_state()
-                buf = _flush(buf, cur_s, idx)
-                surv = np.flatnonzero(~conv)
-                fill = np.flatnonzero(conv)[:1]
-                sel = np.concatenate([surv, np.repeat(fill, nb - live)])
-                sel_t = torch.as_tensor(sel, device=dev0)
-                cur_d = _gather(cur_d, sel_t)
-                cur_s = _gather(cur_s, sel_t)
-                idx = idx[sel]
-                ph_prev = ph[sel]
-                if sharded and nb < d0:
-                    # below the mesh floor: the survivors go on on the
-                    # first device alone
-                    sharded = False
-                    stats.collapsed_at = nb
-                    _synchronize(devices)
-                elif sharded:
-                    parts = shard_out()
+                    obs.event("chunk", bucket=bb, live=live,
+                              chunk_s=t_chunk, phases=dph, devices=d_now)
+                if live == 0:
+                    buf = _flush(buf, full_state(), idx)
+                    break
+                if deadline is not None and _now() + t_chunk >= deadline:
+                    stats.deadline_hit = True
+                    un = np.zeros((stats.dispatched_batch,), bool)
+                    un[idx[~conv]] = True
+                    stats.unconverged = un
+                    if obs is not None:
+                        obs.event("deadline-cut", bucket=bb, live=live)
+                    buf = _flush(buf, full_state(), idx)
+                    break
+                nb = pow2_at_least(live)
+                if nb <= bb // 2:
+                    cur_s = full_state()
+                    buf = _flush(buf, cur_s, idx)
+                    surv = np.flatnonzero(~conv)
+                    fill = np.flatnonzero(conv)[:1]
+                    sel = np.concatenate([surv, np.repeat(fill, nb - live)])
+                    sel_t = torch.as_tensor(sel, device=dev0)
+                    cur_d = _gather(cur_d, sel_t)
+                    cur_s = _gather(cur_s, sel_t)
+                    idx = idx[sel]
+                    ph_prev = ph[sel]
+                    if sharded and nb < d0:
+                        # below the mesh floor: the survivors go on on the
+                        # first device alone
+                        sharded = False
+                        stats.collapsed_at = nb
+                        _synchronize(devices)
+                    elif sharded:
+                        parts = shard_out()
         else:
             buf = _flush(buf, full_state(), idx)
+        record_phases(stats, ph_last)
     finally:
         if shards is not None:
             shards.close()
@@ -418,11 +429,13 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
             **prep_kw)
         return out, _wrap_stats(cst, d, batch_axis,
                                 collapsed_at=cst.dispatched_batch or None)
-    p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
-                     min_batch=d, **prep_kw)
-    data, ctx = spec.prologue(p.ops)
-    ctx = {**ctx, **{kk: p.ops[kk] for kk in spec.ctx_ops}}
-    state0 = spec.init_state(data, ctx)
+    with _tracing.span("solve.prepare"):
+        p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
+                         min_batch=d, **prep_kw)
+    with _tracing.span("solve.prologue"):
+        data, ctx = spec.prologue(p.ops)
+        ctx = {**ctx, **{kk: p.ops[kk] for kk in spec.ctx_ops}}
+        state0 = spec.init_state(data, ctx)
     stats = DistributedStats(batch=b, dispatched_batch=p.bp, chunk=k,
                              devices=d, batch_axis=batch_axis,
                              placement="batch")
@@ -432,13 +445,11 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
         max_chunk_dispatches(p.phase_cap, k), stats, devices,
         share_streams=bool(getattr(spec, "fused", False)),
         deadline=deadline, obs=obs)
-    r = spec.epilogue(ctx, final)
-    phases = np.asarray(final.phases[:b].cpu(), np.int64)
-    stats.phases_needed = int(phases.sum())
-    stats.lockstep_slot_phases = b * int(phases.max(initial=0))
-    if keep_state:
-        stats.final_state = tree_map(lambda a: a[:b], final)
-    return spec.trim(r, b), stats
+    with _tracing.span("solve.epilogue"):
+        r = spec.epilogue(ctx, final)
+        if keep_state:
+            stats.final_state = tree_map(lambda a: a[:b], final)
+        return spec.trim(r, b), stats
 
 
 def _wrap_stats(cst: CompactionStats, devices: int, batch_axis: str,
@@ -482,9 +493,7 @@ def _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed, k,
     stats = DistributedStats(
         batch=b, dispatched_batch=b, chunk=k, devices=mesh2.size,
         batch_axis=batch_axis, placement="matrix", dispatches=b)
-    phases = np.asarray(out.phases.cpu(), np.int64)
-    stats.phases_needed = int(phases.sum())
-    stats.lockstep_slot_phases = b * int(phases.max(initial=0))
+    record_phases(stats, host_numpy("epilogue", out.phases))
     return out, stats
 
 

@@ -22,6 +22,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.slack_propose import _mix, proposal_keys, slack_propose_ref
+from ..obs import tracing as _tracing
 from .device import host_flags
 
 __all__ = ["_mix", "proposal_keys", "MaximalMatchingState",
@@ -90,31 +91,36 @@ def greedy_maximal_matching(
     rows = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
     salt7919 = salt.to(torch.int32) * 7919
     ran = True
-    for r in range(min(m, n) + 1):
-        run = ~done
-        salt_round = (salt7919 + rounds).contiguous()
-        prop = propose_fn(c_int, y_b, y_a, active_b & run[:, None],
-                          avail_a[:, :n].contiguous(), salt_round)
-        has_prop = prop >= 0
-        # accept: per column, the lowest-index proposing row wins
-        tgt = torch.where(has_prop, prop, n).to(torch.int64)
-        winners = torch.full((b, n + 1), m, dtype=torch.int32, device=dev)
-        winners.scatter_reduce_(1, tgt, torch.where(has_prop, rows, m),
-                                reduce="amin")
-        won = has_prop & (winners.gather(1, tgt) == rows)
-        mprime_b = torch.where(won, prop, mprime_b)
-        won_col = torch.where(won, prop, n).to(torch.int64)
-        mprime_a.scatter_(1, won_col, rows)
-        avail_a.scatter_(1, won_col, False)
-        active_b = active_b & ~won
-        rounds = rounds + run.to(torch.int32)
-        done = done | ~has_prop.any(dim=1)
-        if r == 0:
-            stop, ran = host_flags("round", done.all(), lanes.any())
-        else:
-            stop, = host_flags("round", done.all())
-        if stop:
-            break
+    with _tracing.span("core.rounds") as sp:
+        for r in range(min(m, n) + 1):
+            run = ~done
+            salt_round = (salt7919 + rounds).contiguous()
+            prop = propose_fn(c_int, y_b, y_a, active_b & run[:, None],
+                              avail_a[:, :n].contiguous(), salt_round)
+            has_prop = prop >= 0
+            # accept: per column, the lowest-index proposing row wins
+            tgt = torch.where(has_prop, prop, n).to(torch.int64)
+            winners = torch.full((b, n + 1), m, dtype=torch.int32, device=dev)
+            winners.scatter_reduce_(1, tgt, torch.where(has_prop, rows, m),
+                                    reduce="amin")
+            won = has_prop & (winners.gather(1, tgt) == rows)
+            mprime_b = torch.where(won, prop, mprime_b)
+            won_col = torch.where(won, prop, n).to(torch.int64)
+            mprime_a.scatter_(1, won_col, rows)
+            avail_a.scatter_(1, won_col, False)
+            active_b = active_b & ~won
+            rounds = rounds + run.to(torch.int32)
+            done = done | ~has_prop.any(dim=1)
+            if r == 0:
+                stop, ran = host_flags("round", done.all(), lanes.any())
+            else:
+                stop, = host_flags("round", done.all())
+            if stop:
+                break
+        if sp is not None:
+            n_rounds = r + 1 if ran else 0
+            sp.attrs["rounds"] = n_rounds
+            _tracing.add("rounds", n_rounds)
     return MaximalMatchingState(
         mprime_b=mprime_b, mprime_a=mprime_a[:, :n], avail_a=avail_a[:, :n],
         active_b=active_b, rounds=rounds, done=done, ran=ran)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .device import as_f32, resolve_device
+from .device import as_f32, host_numpy, resolve_device
 from .pushrelabel import (
     AssignmentResult,
     PushRelabelState,
@@ -181,7 +181,7 @@ def _mask_ot_inputs(c, nu, mu, m_valid, n_valid, theta, eps):
     row_ok = np.arange(m)[None, :] < m_valid[:, None]
     col_ok = np.arange(n)[None, :] < n_valid[:, None]
     eps_b = np.broadcast_to(np.asarray(eps, np.float64), (b,))
-    nu_h = np.where(row_ok, nu.cpu().numpy(), np.float32(0.0))
+    nu_h = np.where(row_ok, host_numpy("prepare", nu), np.float32(0.0))
     s_rows = np.floor(nu_h * np.asarray(theta, np.float32)[:, None])
     thr = (eps_b * s_rows.sum(axis=1, dtype=np.float64)).astype(np.int64) \
         .astype(np.int32)

@@ -54,7 +54,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.slack_propose import _H1, _H2, _H3, UMAX
-from .device import as_f32, host_flags
+from .device import as_f32, host_flags, host_numpy
 from .pushrelabel import (
     AssignmentResult,
     assignment_epilogue,
@@ -521,7 +521,7 @@ def solve_ot_sharded(c, nu, mu, eps: float, mesh, *, row_axis: str = "data",
     mu = as_f32(mu, home)
     if theta is None:
         theta = 4.0 * max(nb, na) / eps
-    threshold = ot_termination_threshold(nu.cpu().numpy(),
+    threshold = ot_termination_threshold(host_numpy("prepare", nu),
                                          np.float32(theta), eps)
     theta_t = torch.tensor([theta], dtype=torch.float32, device=home)
     eps_t = torch.tensor([eps], dtype=torch.float32, device=home)

@@ -26,6 +26,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import tracing as _tracing
+from .device import host_numpy
 from .problem import pow2_at_least, tree_map
 
 __all__ = [
@@ -218,7 +220,7 @@ def sparse_from_dense_device(plan: torch.Tensor, batch: int
     flat = plan.reshape(b, m * n)
     nnz_t = _count_nnz(plan)
     hits = torch.nonzero(flat)                 # (total, 2), lane-major
-    nnz = nnz_t.cpu().numpy()
+    nnz = host_numpy("fetch", nnz_t)
     k = min(pow2_at_least(int(nnz[:batch].max(initial=1))), m * n)
     lane, pos_flat = hits[:, 0], hits[:, 1]
     start = torch.cumsum(nnz_t, 0, dtype=torch.int64) - nnz_t
@@ -228,8 +230,8 @@ def sparse_from_dense_device(plan: torch.Tensor, batch: int
     vals = torch.zeros((b, k), dtype=torch.float32, device=plan.device)
     idx[lane[keep], pos[keep]] = pos_flat[keep].to(torch.int32)
     vals[lane[keep], pos[keep]] = flat[lane[keep], pos_flat[keep]]
-    return SparsePlanBatch(idx=idx[:batch].cpu().numpy(),
-                           vals=vals[:batch].cpu().numpy(),
+    return SparsePlanBatch(idx=host_numpy("fetch", idx[:batch]),
+                           vals=host_numpy("fetch", vals[:batch]),
                            nnz=nnz[:batch], shape=(int(m), int(n)))
 
 
@@ -314,11 +316,15 @@ class SolutionBatch:
                 f"want={self.want}; add {name!r} to fetch it")
 
     def _fetch(self, name: str) -> Dict[str, np.ndarray]:
-        """Host arrays for one artifact, fetched at most once."""
+        """Host arrays for one artifact, fetched at most once, under a
+        ``solution.fetch`` span."""
         cached = self._host.get(name)
         if cached is None:
-            dev = self.spec.artifact_device(name, self._r, self._state)
-            cached = {k: v.cpu().numpy() for k, v in dev.items()}
+            with _tracing.root("solution.fetch") as sp:
+                if sp is not None:
+                    sp.attrs["artifact"] = name
+                dev = self.spec.artifact_device(name, self._r, self._state)
+                cached = {k: host_numpy("fetch", v) for k, v in dev.items()}
             self._host[name] = cached
         return cached
 
@@ -393,8 +399,11 @@ class SolutionBatch:
         """Batched COO plans at the pow2 capacity of the largest support."""
         self._check("plan_sparse")
         if self._sparse is None:
-            self._sparse = self.spec.artifact_plan_sparse(
-                self._r, self._fetch, self.batch, self.padded_shape)
+            with _tracing.root("solution.fetch") as sp:
+                if sp is not None:
+                    sp.attrs["artifact"] = "plan_sparse"
+                self._sparse = self.spec.artifact_plan_sparse(
+                    self._r, self._fetch, self.batch, self.padded_shape)
         return self._sparse
 
     def state(self) -> Any:
@@ -414,9 +423,12 @@ class SolutionBatch:
         additive bounds are stated against. Requires ``"duals"``."""
         self._check("duals")
         if "scale" not in self._derived:
-            self._derived["scale"] = _masked_max(
-                self._inputs["c"], self._sizes_t(0),
-                self._sizes_t(1)).cpu().numpy()[:self.batch]
+            with _tracing.root("solution.certificate") as sp:
+                if sp is not None:
+                    sp.attrs["certificate"] = "scale"
+                self._derived["scale"] = host_numpy("fetch", _masked_max(
+                    self._inputs["c"], self._sizes_t(0),
+                    self._sizes_t(1)))[:self.batch]
         return self._derived["scale"]
 
     def dual_objective(self) -> np.ndarray:
@@ -424,14 +436,18 @@ class SolutionBatch:
         <mu, y_a> for OT; >= OPT - eps * m * scale."""
         self._check("duals")
         if "dual_objective" not in self._derived:
-            mv, nv = self._sizes_t(0), self._sizes_t(1)
-            y_b, y_a = self._r.y_b, self._r.y_a
-            if "nu" in self._inputs:
-                obj = _dual_obj_ot(y_b, y_a, self._inputs["nu"],
-                                   self._inputs["mu"], mv, nv)
-            else:
-                obj = _dual_obj_assignment(y_b, y_a, mv, nv)
-            self._derived["dual_objective"] = obj.cpu().numpy()[:self.batch]
+            with _tracing.root("solution.certificate") as sp:
+                if sp is not None:
+                    sp.attrs["certificate"] = "dual_objective"
+                mv, nv = self._sizes_t(0), self._sizes_t(1)
+                y_b, y_a = self._r.y_b, self._r.y_a
+                if "nu" in self._inputs:
+                    obj = _dual_obj_ot(y_b, y_a, self._inputs["nu"],
+                                       self._inputs["mu"], mv, nv)
+                else:
+                    obj = _dual_obj_assignment(y_b, y_a, mv, nv)
+                self._derived["dual_objective"] = host_numpy(
+                    "fetch", obj)[:self.batch]
         return self._derived["dual_objective"]
 
     def mass(self) -> np.ndarray:
@@ -439,13 +455,15 @@ class SolutionBatch:
         Requires ``"duals"``."""
         self._check("duals")
         if "mass" not in self._derived:
-            if "nu" in self._inputs:
-                self._derived["mass"] = _masked_sum(
-                    self._inputs["nu"],
-                    self._sizes_t(0)).cpu().numpy()[:self.batch]
-            else:
-                self._derived["mass"] = self.sizes[:self.batch, 0].astype(
-                    np.float64)
+            with _tracing.root("solution.certificate") as sp:
+                if sp is not None:
+                    sp.attrs["certificate"] = "mass"
+                if "nu" in self._inputs:
+                    self._derived["mass"] = host_numpy("fetch", _masked_sum(
+                        self._inputs["nu"], self._sizes_t(0)))[:self.batch]
+                else:
+                    self._derived["mass"] = self.sizes[
+                        :self.batch, 0].astype(np.float64)
         return self._derived["mass"]
 
     def additive_gap(self) -> np.ndarray:
@@ -461,19 +479,23 @@ class SolutionBatch:
         """(B,) bool: y(b) + y(a) <= c + eps * scale on every live edge
         (invariant I2), ``tol`` absorbing the f32 scaling."""
         self._check("duals")
-        c = self._inputs["c"]
-        if "mu" in self._inputs:
-            # only columns with demand carry copies and hence constraints
-            live = self._inputs["mu"] > 0
-        else:
-            live = torch.ones((c.shape[0], c.shape[2]), dtype=torch.bool,
-                              device=c.device)
-        margin = _feasibility_margin(
-            c, self._r.y_b, self._r.y_a,
-            self._sizes_t(0), self._sizes_t(1), live).cpu().numpy()
-        slack = (self.eps_internal[:self.batch] * self.scale()
-                 + tol * np.maximum(self.scale(), 1.0))
-        return margin[:self.batch] <= slack
+        with _tracing.root("solution.certificate") as sp:
+            if sp is not None:
+                sp.attrs["certificate"] = "dual_feasible"
+            c = self._inputs["c"]
+            if "mu" in self._inputs:
+                # only columns with demand carry copies and hence
+                # constraints
+                live = self._inputs["mu"] > 0
+            else:
+                live = torch.ones((c.shape[0], c.shape[2]),
+                                  dtype=torch.bool, device=c.device)
+            margin = host_numpy("fetch", _feasibility_margin(
+                c, self._r.y_b, self._r.y_a,
+                self._sizes_t(0), self._sizes_t(1), live))
+            slack = (self.eps_internal[:self.batch] * self.scale()
+                     + tol * np.maximum(self.scale(), 1.0))
+            return margin[:self.batch] <= slack
 
     # -- per-instance views --------------------------------------------
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import tracing as _tracing
 from .device import host_flags
 
 
@@ -111,27 +112,32 @@ def _phase(c_int, s: OTState, max_rounds: int, lanes
     rounds = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = ~lanes
     ran = True
-    for r in range(max_rounds):
-        run = ~done
-        salt = (s.phases * 7919 + rounds).contiguous()
-        tgt, grant, any_prop = _grant_round(
-            c_int, s.y_b, s.ya_hi, torch.where(run[:, None], rem_b, 0),
-            cap_a, salt)
-        # accumulate this round's grants in place: granted is (B, nb, na);
-        # a row that did not propose adds its zero grant to column na - 1
-        tgt_c = tgt.clamp(max=na - 1)
-        granted_rows.scatter_add_(1, tgt_c.view(b * nb, 1),
-                                  grant.view(b * nb, 1))
-        cap_a = cap_a.scatter_add(1, tgt_c, -grant)
-        rem_b = rem_b - grant
-        rounds = rounds + run.to(torch.int32)
-        done = done | ~any_prop
-        if r == 0:
-            stop, ran = host_flags("round", done.all(), lanes.any())
-        else:
-            stop, = host_flags("round", done.all())
-        if stop:
-            break
+    with _tracing.span("core.rounds") as sp:
+        for r in range(max_rounds):
+            run = ~done
+            salt = (s.phases * 7919 + rounds).contiguous()
+            tgt, grant, any_prop = _grant_round(
+                c_int, s.y_b, s.ya_hi, torch.where(run[:, None], rem_b, 0),
+                cap_a, salt)
+            # accumulate this round's grants in place: granted is (B, nb, na);
+            # a row that did not propose adds its zero grant to column na - 1
+            tgt_c = tgt.clamp(max=na - 1)
+            granted_rows.scatter_add_(1, tgt_c.view(b * nb, 1),
+                                      grant.view(b * nb, 1))
+            cap_a = cap_a.scatter_add(1, tgt_c, -grant)
+            rem_b = rem_b - grant
+            rounds = rounds + run.to(torch.int32)
+            done = done | ~any_prop
+            if r == 0:
+                stop, ran = host_flags("round", done.all(), lanes.any())
+            else:
+                stop, = host_flags("round", done.all())
+            if stop:
+                break
+        if sp is not None:
+            n_rounds = r + 1 if ran else 0
+            sp.attrs["rounds"] = n_rounds
+            _tracing.add("rounds", n_rounds)
     if not ran:
         return s, False
 

@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .device import as_f32
+from .device import as_f32, host_numpy
 from .problem import _sizes_arrays
 
 __all__ = [
@@ -148,7 +148,7 @@ def admission_codes(inputs: Dict[str, Any], *,
                                            device=dev))
     else:
         codes = _admission_assignment(c, m_valid, n_valid)
-    return codes.cpu().numpy()
+    return host_numpy("prepare", codes)
 
 
 def check_admission(inputs: Dict[str, Any], *,

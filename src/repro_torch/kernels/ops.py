@@ -16,7 +16,8 @@ per source, all started together) and loaded with ``ctypes``; a shared
 library is named by the hash of its source and of every header the source
 includes from ``csrc/``, so an edited source or header is rebuilt.
 ``launches`` counts, per kernel, the launches made through these wrappers,
-and nothing else.
+and nothing else; while the solve path records spans (``obs.tracing``)
+each launch is also counted on the root span open on its thread.
 
 Both are safe from several threads (the serving scheduler launches from a
 collate and a dispatch thread): one module lock covers the whole
@@ -42,6 +43,7 @@ from . import cost_matrix as _cm
 from . import fused_phase as _fp
 from . import sinkhorn_step as _ss
 from . import slack_propose as _sp
+from ..obs import tracing as _tracing
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -206,6 +208,8 @@ def _launch(name: str, *args) -> None:
                            f"(cudaError {err})")
     with _count_lock:
         launches[name] += 1
+    if _tracing.recording():
+        _tracing.add("launches." + name)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

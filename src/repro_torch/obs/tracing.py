@@ -19,14 +19,42 @@ dispatch's solve span without the drivers knowing about scheduling.
 Thread-safety: span ids come from ``itertools.count`` (atomic in
 CPython); a ``Span`` is only ever mutated by the thread that ends it;
 ``Tracer`` itself is immutable after construction.
+
+The solve path's recorder (the second half of this module, beyond the
+reference) puts the same ``Span``s on the layer boundaries of the port's
+solve path: ``root(name, obs)`` at a front door (``costs.build``,
+``solve``, ``solution.fetch``, ``solution.certificate``) and
+``span(name)`` inside it (``solve.prepare``, ``solve.prologue``,
+``driver.chunk``, ``core.rounds``, ``solve.epilogue``). It records only
+while ``recording()``: a ``torch.profiler`` session is live on the
+calling thread, or an operator switched it on (``record(True)``, or
+``REPRO_SPANS=1`` or ``REPRO_SPANS=<file.jsonl>`` in the environment).
+Off, a span site costs that one check and returns a shared no-op context
+manager: no ``Span``, no dict, no clock read, no ``record_function``.
+On, each span is an ``obs.Span`` on ``now()``; under a live profiler it
+also opens a ``record_function`` range of the same name, so it sits in
+the kineto trace, and ``anchor()`` places ``now()`` readings on that
+trace's wall clock (``epoch_ns``). The outermost span open on a thread
+(the root) carries the thread's counts made inside it (``add``): host
+reads and the seconds they blocked by kind, kernel launches by name,
+chunks and rounds. Spans go to the registry of the caller's ``Tracer``
+when ``solve(obs=...)`` passes one (under its trace id and parent), else
+to the recorder's own, whose sinks are a bounded in-memory ring
+(``recorded()``) and any the operator attaches (``record(jsonl=...)``).
+The recorder takes no lock: the open spans are a thread-local stack, the
+ring a ``deque(maxlen=...)`` (atomic append), the switch one rebind.
 """
 from __future__ import annotations
 
 import itertools
+import os
+import threading
+import time
+from collections import deque
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from .metrics import MetricsRegistry, now
+from .metrics import InMemorySink, JSONLSink, MetricsRegistry, now
 
 _ids = itertools.count(1)
 
@@ -163,3 +191,246 @@ def span_tree(events, trace_id: Optional[str] = None) -> str:
 
     walk(None, 0)
     return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# The solve path's recorder
+# --------------------------------------------------------------------------
+
+#: spans the in-process ring keeps (the newest)
+RING_SPANS = 32768
+
+
+def _follow() -> bool:
+    """Whether a ``torch.profiler`` session records this thread, at the
+    first call: binds torch's own flag (``_profiler_live``), and the
+    switch to it when the profiler decides."""
+    global _live, _profiler_live
+    import torch
+
+    _profiler_live = torch._C._autograd._profiler_enabled
+    if _live is _follow:
+        _live = _profiler_live
+    return _profiler_live()
+
+
+def _true() -> bool:
+    return True
+
+
+def _false() -> bool:
+    return False
+
+
+# torch's profiler flag (thread-local), bound at its first read; and the
+# switch: the profiler's flag (the default), _true or _false, rebound
+# whole, never mutated
+_profiler_live = _follow
+_live = _follow
+
+
+def recording() -> bool:
+    """Whether a span site records now (the one check it makes)."""
+    return _live()
+
+
+class _Ring(InMemorySink):
+    """The recorder's in-process sink: the newest ``maxlen`` span events
+    (``deque.append`` is atomic; other kinds are not kept)."""
+
+    def __init__(self, maxlen: int) -> None:
+        self.records = deque(maxlen=maxlen)
+
+    def event(self, kind: str, payload: Dict[str, Any]) -> None:
+        if kind == "span":
+            self.records.append(("event", kind, payload, None))
+
+
+RING = _Ring(RING_SPANS)
+REGISTRY = MetricsRegistry([RING])
+_TRACER = Tracer(REGISTRY)
+_anchor: Optional[Tuple[int, int]] = None
+
+
+def _take_anchor() -> None:
+    """``(time.monotonic_ns(), time.time_ns())`` read together: the
+    monotonic reading is the mean of one before and one after."""
+    global _anchor
+    m0 = time.monotonic_ns()
+    wall = time.time_ns()
+    m1 = time.monotonic_ns()
+    _anchor = ((m0 + m1) // 2, wall)
+
+
+def anchor() -> Optional[Tuple[int, int]]:
+    """The ``(monotonic ns, wall ns)`` pair taken when recording began
+    (the operator's switch, or the first span recorded since the last
+    ``clear()``); None before."""
+    return _anchor
+
+
+def epoch_ns(t: float) -> Optional[int]:
+    """A ``now()`` reading (seconds) on the wall clock of a kineto trace
+    (``start_ns`` of its events), through ``anchor()``."""
+    if _anchor is None:
+        return None
+    return _anchor[1] + int(round(t * 1e9)) - _anchor[0]
+
+
+def record(on: Optional[bool] = True, jsonl: Optional[str] = None) -> None:
+    """The operator's switch. ``True``: record on every thread, profiler
+    or not; ``False``: never, not even under a profiler; ``None``: record
+    while a ``torch.profiler`` session is live (the default). ``jsonl``
+    appends every span the recorder's registry emits to that file, one
+    JSON object a line (``JSONLSink``)."""
+    global _live
+    if jsonl is not None:
+        REGISTRY.attach(JSONLSink(jsonl))
+    if on:
+        _take_anchor()
+    _live = (_true if on else _false if on is not None
+             else _profiler_live)
+
+
+def recorded() -> List[Dict[str, Any]]:
+    """The span events in the ring, oldest first (a snapshot)."""
+    return RING.spans()
+
+
+def clear() -> None:
+    """Empty the ring and drop the anchor."""
+    global _anchor
+    RING.records.clear()
+    _anchor = None
+
+
+class _Stack(threading.local):
+    def __init__(self) -> None:
+        self.open: List["_Open"] = []
+
+
+_STACK = _Stack()
+
+
+def add(key: str, n: float = 1) -> None:
+    """Add ``n`` to ``key`` in the counts of the root span open on this
+    thread (nothing when none is, or recording is off). A dotted key
+    ``"group.name"`` lands in the root's ``group`` dict."""
+    if not _live():
+        return
+    st = _STACK.open
+    if st:
+        t = st[0].tally
+        t[key] = t.get(key, 0) + n
+
+
+def _nest(tally: Dict[str, float]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tally.items():
+        group, _, key = k.partition(".")
+        if key:
+            out.setdefault(group, {})[key] = v
+        else:
+            out[group] = v
+    return out
+
+
+def _range(name: str):
+    """A ``record_function`` range of ``name`` while a profiler session
+    records this thread (the fast variant where torch has it)."""
+    if not _profiler_live():
+        return None
+    import torch
+
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    if fast is not None:
+        return fast(name)
+    return torch.autograd.profiler.record_function(name)
+
+
+class _Open:
+    """A recording span site: pushes its ``Span`` on the thread's stack
+    for the body, then ends it (the root with its counts)."""
+
+    __slots__ = ("span", "tally", "_rf")
+
+    def __init__(self, span: Span, tally: Optional[Dict[str, float]],
+                 rf) -> None:
+        self.span = span
+        self.tally = tally
+        self._rf = rf
+
+    def __enter__(self) -> Span:
+        _STACK.open.append(self)
+        if self._rf is not None:
+            self._rf.__enter__()
+        return self.span
+
+    def __exit__(self, et, ev, tb) -> bool:
+        if self._rf is not None:
+            self._rf.__exit__(et, ev, tb)
+        _STACK.open.pop()
+        attrs = _nest(self.tally) if self.tally else {}
+        if et is not None:
+            attrs["error"] = et.__name__
+        self.span.end(**attrs)
+        return False
+
+
+class _Null:
+    """The span site with recording off: enters as None, does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, et, ev, tb) -> bool:
+        return False
+
+
+_NULL = _Null()
+
+
+def _child(name: str):
+    parent = _STACK.open[-1].span
+    sp = Span(name, parent.trace_id, next(_ids), parent.span_id, {},
+              parent._tracer)
+    return _Open(sp, None, _range(name))
+
+
+def span(name: str):
+    """A span inside the front-door call open on this thread: a child of
+    the innermost open span. With recording off, or no span open on the
+    thread (a worker of the mesh driver), the no-op site."""
+    if not _live() or not _STACK.open:
+        return _NULL
+    return _child(name)
+
+
+def root(name: str, obs=None):
+    """The span of one front-door call: a new trace on the recorder's
+    registry, or on ``obs``'s registry under its trace id and parent
+    when ``obs`` is a ``Tracer``. Inside another front-door call on the
+    same thread (a fetch inside a certificate) it is a child instead.
+    ``with root(...) as sp``: ``sp`` is the ``Span`` (set attributes on
+    ``sp.attrs``), or None with recording off."""
+    if not _live():
+        return _NULL
+    if _STACK.open:
+        return _child(name)
+    if _anchor is None:
+        _take_anchor()
+    tracer = obs if isinstance(obs, Tracer) else _TRACER
+    return _Open(tracer.start(name), {}, _range(name))
+
+
+def _from_env() -> None:
+    """``REPRO_SPANS``: "1" records, any other non-empty value records
+    and exports to that JSONL file."""
+    flag = os.environ.get("REPRO_SPANS", "")
+    if flag:
+        record(True, jsonl=None if flag == "1" else flag)
+
+
+_from_env()

@@ -13,9 +13,14 @@ same inputs, so both routes are measured in one call on one card; with
 ``solver="sinkhorn"`` (stepped and fused) and ``solver="hybrid"``. It
 reports for each: wall time (with the
 profiler on, which slows the host side), the summed device time of every
-kernel, their share of that wall time (the card's busy share; the rest is
-idle), the top kernels by device time, the host syncs and the launches of
-the port's own kernels. Where ``slack_propose`` runs (the stepped route),
+kernel, the top kernels by device time, the host syncs and the launches
+of the port's own kernels, and from the solve path's spans
+(``repro_torch.obs.tracing``, recording under the profiler) the root
+``solve`` span's per-call counts (reads and the seconds they blocked by
+kind, launches by kernel, chunks, rounds) and the host seconds of each
+phase (``solve.prepare``, ``solve.prologue``, ``driver.chunk``,
+``core.rounds``, ``solve.epilogue``, the artifact fetches). Where
+``slack_propose`` runs (the stepped route),
 it also gives that kernel's launches, the sum of their live rows (counted
 in the warm-up solve, one host read per launch), its summed device time
 and the sum of each launch's bound (``chip_smoke.propose_bound``). Needs
@@ -61,15 +66,31 @@ def _count_propose(ops, run):
     return counts, out
 
 
+def span_summary(spans):
+    """The root ``solve`` span's counts and the host seconds of each span
+    name of the recorded calls."""
+    root = next((s for s in spans if s["name"] == "solve"
+                 and s["parent_id"] is None), None)
+    host_s: dict = {}
+    for s in spans:
+        host_s[s["name"]] = host_s.get(s["name"], 0.0) + s["dur_s"]
+    counts = {} if root is None else {
+        k: root[k] for k in ("syncs", "sync_wait_s", "launches", "chunks",
+                             "rounds") if k in root}
+    return {"root": counts, "host_s": host_s}
+
+
 def profile_case(torch, name, run):
     from chip_smoke import device_us
     from repro_torch.core import device as rdev
     from repro_torch.kernels import ops
+    from repro_torch.obs import tracing
 
     # warm-up (kernel build, caches), with slack_propose's launches counted
     propose, _ = _count_propose(ops, run)
     ops.reset_launches()
     rdev.reset_sync_counts()
+    tracing.clear()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -84,7 +105,6 @@ def profile_case(torch, name, run):
     rows = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
             if e.device_type == cuda]
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in rows) / 1e6
     if propose["launches"]:
         # the profiled run repeats the counted one launch for launch
         propose["same_launches"] = (propose["launches"]
@@ -93,9 +113,10 @@ def profile_case(torch, name, run):
             us for k, _, us in rows if "slack_propose_kernel" in k) / 1e3
         propose["mean_active_rows"] = (propose["active_rows"]
                                        / propose["launches"])
-    out = {"case": name, **info, "wall_s": wall, "device_busy_s": busy_s,
-           "busy_share": busy_s / wall if wall > 0 else None,
+    out = {"case": name, **info, "wall_s": wall,
+           "kernel_s": sum(r[2] for r in rows) / 1e6,
            "syncs": dict(rdev.sync_counts), "launches": dict(ops.launches),
+           "spans": span_summary(tracing.recorded()),
            **({"slack_propose": propose} if propose["launches"] else {}),
            "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
                    for k, c, us in rows[:12]]}
