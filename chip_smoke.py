@@ -37,9 +37,10 @@ Phases, in order; any failure exits non-zero:
      (``cuda_ms``), cross-checked by ``torch.profiler``
      (``profiler_ms``);
   3. ``solve(ASSIGNMENT)`` at the paper's size (Fig. 1: n = 10 000 points
-     in the unit square, euclidean, eps = 0.01) under the default policy
-     and under ``guaranteed=True``, with their certificates and the
-     kernel launch counts;
+     in the unit square, euclidean, eps = 0.01) on the stepped route
+     (``fused=False``; the default policy takes the fused route on the
+     card) and under ``guaranteed=True``, with their certificates and
+     the kernel launch counts;
   4. ``solve(OT)`` at n = 4096 with Dirichlet masses, eps = 0.05, with its
      certificates, and an OT solve at n = 512 against scipy's exact LP;
   5. card against CPU on a ragged batch of 8 instances (n = 128 .. 512)
@@ -69,7 +70,8 @@ Phases, in order; any failure exits non-zero:
      with 8 assignment requests of n = 1024-2048 784-pixel images each
      (l1, eps 0.1: Fig. 2's shape, the cost kernel's images instance);
      every healthy request at ladder level 0, not degraded, the
-     ``cost_matrix`` and ``slack_propose`` counts moved; p50/p99 latency,
+     ``cost_matrix`` and fused kernel counts moved (the services'
+     default route on the card), no ``slack_propose``; p50/p99 latency,
      instances/s; (c) every bucket's costs equal to the plain version
      on the card within ``tolerance(metric, d)`` (the serve shapes: B x
      2048^2 at d = 2, 8 x 2048^2 at d = 784), its integer state equal to
@@ -1035,7 +1037,7 @@ def phase_assignment(torch, rng, dev, record, ctx) -> bool:
         # the pre-batched form: a ragged list would pad n = 10 000 to the
         # ceil-pow2 bucket 16 384
         sol = solve(ASSIGNMENT, {"c": c[None]}, eps,
-                    DispatchPolicy(guaranteed=guaranteed),
+                    DispatchPolicy(guaranteed=guaranteed, fused=False),
                     want=("cost", "duals", "matching", "state"),
                     device=dev)[0]
         sol.cost
@@ -1082,7 +1084,7 @@ def phase_ot(torch, rng, dev, record, ctx) -> bool:
                               device=dev)
         nu = rng.dirichlet(np.ones(n)).astype(np.float32)
         mu = rng.dirichlet(np.ones(n)).astype(np.float32)
-        policy = DispatchPolicy(guaranteed=exact)
+        policy = DispatchPolicy(guaranteed=exact, fused=False)
         sol = solve(OT, [(c, nu, mu)], eps, policy,
                     want=("cost", "duals", "plan_sparse", "state"),
                     device=dev)[0]
@@ -1127,7 +1129,7 @@ def phase_card_vs_cpu(torch, rng, dev, record, ctx) -> bool:
     costs = [build_cost_matrix(_points(rng, n), _points(rng, n),
                                "euclidean", device=dev) for n in sizes]
     host = [c.cpu() for c in costs]   # the same float matrices on both
-    policy = DispatchPolicy(mode="compact")
+    policy = DispatchPolicy(mode="compact", fused=False)
     for name, spec, eps, insts_dev, insts_cpu in [
         ("assignment", ASSIGNMENT, 0.05, costs, host),
         ("ot", OT, 0.1, None, None),
@@ -2176,8 +2178,10 @@ def phase_serving(torch, ops, rdev, dev, record, ctx, launches) -> bool:
              "stats": svc.stats_dict()}
     log(f"[8] (b) service {json.dumps(res_b, default=float)}")
     ok &= ok_b
-    for name in ("cost_matrix", "slack_propose"):
-        ok &= sched_launches[name] > 0 and svc_launches[name] > 0
+    # the services' default route on the card: the fused kernels
+    for lc in (sched_launches, svc_launches):
+        ok &= (lc["cost_matrix"] > 0 and lc["slack_propose"] == 0
+               and lc["fused_assignment_phases"] + lc["fused_ot_phases"] > 0)
     # one cost launch per bucket (the deadline request's bucket too)
     ok &= sched_launches["cost_matrix"] == len(rec.costs) == len(rec.calls)
     ok &= svc_launches["cost_matrix"] == len(svc_rec.costs)

@@ -18,11 +18,15 @@ Results are identical across lockstep, compact and mesh/batch, lane for
 lane; mesh/matrix has the same integer state, and floats equal up to
 reassociation. It runs on the CUDA device unless ``device="cpu"`` is
 passed; under mesh mode the mesh decides the devices (a ``device=`` that
-is not the mesh's first device raises). On the card the stepped route
-(the default) launches the ``slack_propose`` kernel in every propose
-round; ``DispatchPolicy(fused=True)`` swaps the spec for its fused variant
-(``FUSED_ASSIGNMENT`` / ``FUSED_OT``), which runs a whole k-phase chunk in
-one launch of the fused kernel, with the same results bit for bit.
+is not the mesh's first device raises). The stepped route launches the
+``slack_propose`` kernel in every propose round, a host-driven loop of
+~40-58 launches and one flag read a round; the fused route swaps the spec
+for its fused variant (``FUSED_ASSIGNMENT`` / ``FUSED_OT``), which runs a
+whole k-phase chunk in one launch of the fused kernel, with the same
+results bit for bit. ``DispatchPolicy()`` (``fused=None``) takes the fused
+route for push-relabel buckets on a CUDA device and the stepped route on
+the CPU (``DispatchPolicy.fused_for``); ``fused=True`` / ``False`` force
+one.
 
 ``DispatchPolicy(solver=...)`` picks the algorithm for OT batches from the
 solver portfolio (``repro_torch.portfolio``): push-relabel (the default),
@@ -48,6 +52,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
@@ -60,6 +65,7 @@ from .problem import (  # noqa: F401  (re-exported with solve)
     FUSED_OT,
     OT,
     fused_variant,
+    has_fused_variant,
 )
 from . import solution as solution_mod
 from .solution import Solution, SolutionBatch, SolveStats
@@ -91,7 +97,9 @@ class DispatchPolicy:
         placement runs the stepped kernels (the fused kernel is a
         whole-instance program). With
         ``solver="sinkhorn"``, every f-update launches the
-        ``sinkhorn_row_update`` kernel (``SINKHORN_KERNEL``).
+        ``sinkhorn_row_update`` kernel (``SINKHORN_KERNEL``). None (the
+        default): fused where a fused kernel runs the chunk, as
+        :meth:`fused_for` resolves it per bucket.
       solver: the algorithm for OT-family batches: "pushrelabel" (the
         paper's solver, guaranteed at every eps), "sinkhorn" (log-domain,
         AWR schedule, the same additive-eps certificate), "hybrid" (coarse
@@ -115,7 +123,7 @@ class DispatchPolicy:
     guaranteed: bool = False
     want: Optional[Tuple[str, ...]] = None
     validate: bool = False
-    fused: bool = False
+    fused: Optional[bool] = None
     solver: str = "pushrelabel"
 
     def __post_init__(self):
@@ -132,6 +140,20 @@ class DispatchPolicy:
         if self.placement not in ("auto", "batch", "matrix"):
             raise ValueError(f"unknown placement {self.placement!r}; "
                              "expected 'auto', 'batch' or 'matrix'")
+
+    def fused_for(self, spec, device, solver: str = "pushrelabel") -> bool:
+        """Whether a bucket of ``spec`` on ``device``, routed to
+        ``solver``, runs its chunks on the fused kernels. ``fused`` set:
+        that. None: push-relabel specs with a fused variant on a CUDA
+        device, where a chunk becomes one launch instead of a host round
+        loop; stepped on the CPU (the fused spec there is an eager twin
+        that saves nothing), for the Sinkhorn solver (its row kernel
+        stays opt-in) and for specs without a fused variant. Matrix
+        placement runs the stepped kernels whatever this says."""
+        if self.fused is not None:
+            return self.fused
+        return (solver == "pushrelabel" and _on_card(device)
+                and has_fused_variant(spec))
 
     def resolved_mode(self) -> str:
         if self.mode != "auto":
@@ -180,6 +202,10 @@ class DispatchPolicy:
                    solver=solver)
 
 
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
 def _resolve_solver(spec, policy: DispatchPolicy, inputs, eps):
     """(solver name, dispatch spec, predicted per-instance seconds) for ONE
     pre-batched bucket. Deterministic and side-effect free: ``solve``
@@ -223,7 +249,9 @@ def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
     ``policy.solver`` routes the bucket through the solver portfolio; the
     chosen solver, the cost model's prediction and the dispatch wall time
     are set on the stats (``solver`` / ``predicted_s`` / ``solve_s``) and
-    sent to ``obs`` as a ``"solver-choice"`` event."""
+    sent to ``obs`` as a ``"solver-choice"`` event. ``policy.fused_for``
+    picks the route; the driver that runs the chunks sets it on the
+    ``solve`` span as ``route``."""
     policy, dev = (policy or DispatchPolicy()).on_mesh(device)
     inputs = spec.canonicalize(inputs, dev)
     solver, spec, predicted = _resolve_solver(spec, policy, inputs, eps)
@@ -235,10 +263,11 @@ def dispatch(spec, inputs: Dict[str, Any], eps, *, sizes=None,
                                    keep_state=keep_state, deadline=deadline,
                                    obs=obs, device=dev, **prep_kw)
     else:
-        r, stats = _dispatch_one(spec, inputs, eps, sizes=sizes,
-                                 policy=policy, keep_state=keep_state,
-                                 deadline=deadline, obs=obs, device=dev,
-                                 **prep_kw)
+        fused = policy.fused_for(spec, dev, solver)
+        r, stats = _dispatch_one(fused_variant(spec) if fused else spec,
+                                 inputs, eps, sizes=sizes, policy=policy,
+                                 keep_state=keep_state, deadline=deadline,
+                                 obs=obs, device=dev, **prep_kw)
     solve_s = _now() - t0
     if stats is not None:
         stats.solve_s = solve_s
@@ -255,8 +284,6 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
                   deadline: Optional[float] = None, obs=None, device=None,
                   **prep_kw):
     mode = policy.resolved_mode()
-    if policy.fused:
-        spec = fused_variant(spec)
     if policy.validate:
         from .validate import check_admission
         check_admission(inputs, sizes=sizes)
@@ -363,8 +390,8 @@ def solve(spec, instances: Union[Sequence, Dict[str, Any]], eps,
 
 def _solve_attrs(spec, instances, policy: DispatchPolicy) -> Dict[str, Any]:
     """The root ``solve`` span's attributes: problem, B, m, n (the
-    largest instance's), mode and solver. A malformed input gets no
-    sizes here; the front door raises on it."""
+    largest instance's), mode and solver; the driver adds the route.
+    A malformed input gets no sizes here; the front door raises on it."""
     out = {"problem": spec.name, "mode": policy.resolved_mode(),
            "solver": policy.solver}
     if isinstance(instances, dict):

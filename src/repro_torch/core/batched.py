@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..obs import tracing as _tracing
+from .compaction import _route
 from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
 
 DEFAULT_BUCKETS: tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -91,6 +92,7 @@ def solve_lockstep(spec, inputs, eps: float, *, sizes=None,
         data, ctx = spec.prologue(ops)
         ctx = {**ctx, **{k: ops[k] for k in spec.ctx_ops}}
         state = spec.init_state(data, ctx)
+    _tracing.note("route", _route(spec))
     state = spec.run_phases(data, state, int(p.phase_cap.max(initial=0)) + 1)
     with _tracing.span("solve.epilogue"):
         r = spec.trim(spec.epilogue(ctx, state), b)

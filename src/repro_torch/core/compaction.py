@@ -214,6 +214,12 @@ def spec_fns(spec, k: int):
             spec.epilogue)
 
 
+def _route(spec) -> str:
+    """The ``route`` a driver sets on the ``solve`` span for ``spec``'s
+    chunks."""
+    return "fused" if getattr(spec, "fused", False) else "stepped"
+
+
 def max_chunk_dispatches(phase_cap: np.ndarray, k: int) -> int:
     """Upper bound on k-phase dispatches (phase caps bound every lane)."""
     return -(-int(phase_cap.max(initial=1)) // max(k, 1)) + 2
@@ -256,8 +262,10 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
         # stepped route (analysis/checked.py); one more read a chunk
         from ..analysis.checked import checked_spec_fns
         prologue, init, chunk, conv, epilogue = checked_spec_fns(spec, k)
+        _tracing.note("route", "stepped")
     else:
         prologue, init, chunk, conv, epilogue = spec_fns(spec, k)
+        _tracing.note("route", _route(spec))
     ops = p.ops
     with _tracing.span("solve.prologue"):
         data, ctx = prologue(ops)

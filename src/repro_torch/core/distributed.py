@@ -79,6 +79,7 @@ from .compaction import (
     CompactionStats,
     _flush,
     _gather,
+    _route,
     max_chunk_dispatches,
     record_phases,
     solve_compacting,
@@ -440,6 +441,7 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
                              devices=d, batch_axis=batch_axis,
                              placement="batch")
     _, _, run_fn, conv_fn, _ = spec_fns(spec, k)
+    _tracing.note("route", _route(spec))
     final = _drive_distributed(
         data, state0, run_fn, conv_fn,
         max_chunk_dispatches(p.phase_cap, k), stats, devices,
@@ -479,6 +481,7 @@ def _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed, k,
     m_valid, n_valid = _sizes_arrays(sizes, b, m, n)
     eps_arr = eps_array(eps, b, guaranteed)
     mesh2, row_axis, col_axis = _matrix_mesh(mesh)
+    _tracing.note("route", "stepped")   # the block-sharded stepped solver
     rdiv = int(mesh2.shape[row_axis])
     cdiv = int(mesh2.shape[col_axis])
     rows = []

@@ -717,20 +717,30 @@ AssignmentSpec.fused = False
 OTSpec.fused = False
 
 
-def fused_variant(spec):
-    """Map a base spec to its fused-kernel variant (identity on the fused
-    specs themselves). A spec defined elsewhere registers its own by a
-    ``fused_spec`` attribute. Raises for a spec without one."""
+def _fused_or_none(spec):
     if getattr(spec, "fused", False):
         return spec
     if spec is ASSIGNMENT:
         return FUSED_ASSIGNMENT
     if spec is OT:
         return FUSED_OT
-    alt = getattr(spec, "fused_spec", None)
-    if alt is not None:
-        return alt
-    raise ValueError(f"no fused variant registered for spec {spec!r}")
+    return getattr(spec, "fused_spec", None)
+
+
+def fused_variant(spec):
+    """Map a base spec to its fused-kernel variant (identity on the fused
+    specs themselves). A spec defined elsewhere registers its own by a
+    ``fused_spec`` attribute. Raises for a spec without one."""
+    alt = _fused_or_none(spec)
+    if alt is None:
+        raise ValueError(f"no fused variant registered for spec {spec!r}")
+    return alt
+
+
+def has_fused_variant(spec) -> bool:
+    """Whether :func:`fused_variant` maps ``spec`` (the hybrid finish's
+    warm-started spec, for one, has no fused kernel)."""
+    return _fused_or_none(spec) is not None
 
 
 # --------------------------------------------------------------------------

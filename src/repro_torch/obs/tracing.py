@@ -324,6 +324,18 @@ def add(key: str, n: float = 1) -> None:
         t[key] = t.get(key, 0) + n
 
 
+def note(key: str, value: Any) -> None:
+    """Set ``key`` to ``value`` on the innermost span open on this thread
+    (nothing when none is, or recording is off); a later, different
+    value for the same key (a ragged call's buckets that disagree) makes
+    it "mixed"."""
+    if not _live() or not _STACK.open:
+        return
+    attrs = _STACK.open[-1].span.attrs
+    if attrs.setdefault(key, value) != value:
+        attrs[key] = "mixed"
+
+
 def _nest(tally: Dict[str, float]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in tally.items():

@@ -15,9 +15,9 @@ pass.
 
 ``OTService``'s bucket cost matrices are built by one launch of the
 ``cost_matrix`` kernel (``serve/collate.py``; its plain version on the
-CPU), then solved through the ``core/api.solve`` front door, whose
-propose steps launch ``slack_propose`` (or the fused kernels under a
-fused policy).
+CPU), then solved through the ``core/api.solve`` front door, which on
+the card runs each chunk as one launch of the fused kernels (its default
+route there; ``slack_propose`` rounds under ``fused=False``).
 """
 from __future__ import annotations
 

@@ -96,7 +96,7 @@ def degradation_ladder(policy, device=None) -> List[Tuple[str, Any, Any]]:
     ``device`` when one is given. Below a mesh policy comes the
     reference's middle rung: ``compact`` (no mesh, no cross-device
     traffic, one device) on the mesh's first device, with the policy's
-    chunk, buckets and guarantee. The reference's host-CPU rung is not
+    chunk, buckets, guarantee and route (``fused``). The reference's host-CPU rung is not
     ported: a service built for the card keeps every attempt on the
     card, and a service built with ``device="cpu"`` runs on the CPU from
     level 0."""
@@ -108,7 +108,8 @@ def degradation_ladder(policy, device=None) -> List[Tuple[str, Any, Any]]:
     pol, dev0 = policy.on_mesh(device)
     compact = DispatchPolicy(mode="compact", chunk=policy.chunk,
                              buckets=policy.buckets,
-                             guaranteed=policy.guaranteed)
+                             guaranteed=policy.guaranteed,
+                             fused=policy.fused)
     return [("mesh", pol, dev0), ("compact", compact, dev0)]
 
 

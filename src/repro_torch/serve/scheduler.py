@@ -17,9 +17,10 @@ splits that into a two-stage pipeline:
       |
   [dispatch worker] feeds prepared buckets through the ``core/api.solve``
       front door (mode "mesh" over the scheduler's mesh, as in the
-      reference: the mesh-distributed compacting driver; its propose
-      steps launch ``slack_propose``, or the fused kernels under a fused
-      policy) and resolves the per-request Futures
+      reference: the mesh-distributed compacting driver; on the card
+      each chunk is one launch of the fused kernels, the default route
+      there, and ``fused=False`` makes its propose steps launch
+      ``slack_propose``) and resolves the per-request Futures
 
 with a bounded handoff queue between the stages: while the dispatch
 worker waits inside a solve, the collate worker pads and builds the NEXT

@@ -201,6 +201,79 @@ def test_fused_policy_routes_through_fused_spec(monkeypatch, name):
     assert stats.dispatches > 1
 
 
+FUSED_OPS = ("fused_run_assignment_phases", "fused_run_ot_phases",
+             "sinkhorn_row_update")
+
+# (policy fields, the problem, a faked CUDA device, the route it takes)
+ROUTE_CASES = {
+    "default_cpu_assignment": ({}, "assignment", False, "stepped"),
+    "default_cpu_ot": ({}, "ot", False, "stepped"),
+    "default_card_assignment": ({}, "assignment", True, "fused"),
+    "default_card_ot": ({}, "ot", True, "fused"),
+    "default_card_lockstep": ({"mode": "lockstep"}, "ot", True, "fused"),
+    "explicit_true_cpu": ({"fused": True}, "assignment", False, "fused"),
+    "explicit_false_card": ({"fused": False}, "ot", True, "stepped"),
+    "sinkhorn_card": ({"solver": "sinkhorn"}, "ot", True, "stepped"),
+    "matrix_card": ({"mode": "mesh", "placement": "matrix"}, "assignment",
+                    True, "stepped"),
+    "hybrid_finish_card": ({"solver": "hybrid"}, "ot", True, "stepped"),
+    "sanitizer_card": ({}, "assignment", True, "stepped"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_default_route_resolution(monkeypatch, case):
+    """``DispatchPolicy.fused_for`` per bucket: with ``fused=None`` the
+    fused kernels run push-relabel chunks on a CUDA device (faked here:
+    the CPU runs the kernels' eager twins) and the stepped cores run on
+    the CPU, for Sinkhorn, under matrix placement and in the hybrid
+    finish; an explicit ``fused`` wins. The root ``solve`` span's
+    ``route`` follows what ran, also where the sanitizer swaps the
+    stepped cores in."""
+    from repro_torch.core import compaction
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.obs import tracing
+
+    fields, name, card, route = ROUTE_CASES[case]
+    if fields.get("mode") == "mesh":
+        fields = dict(fields, mesh=make_small_mesh((2,), ("data",),
+                                                   devices="cpu"))
+    policy = tapi.DispatchPolicy(chunk=2, **fields)
+    spec = getattr(tapi, name.upper())
+    # the predicate itself, before the fake: a CUDA device, the CPU
+    default = tapi.DispatchPolicy()
+    assert default.fused_for(spec, torch.device("cuda", 0))
+    assert not default.fused_for(spec, torch.device("cpu"))
+    if card:
+        monkeypatch.setattr(tapi, "_on_card", lambda device: True)
+    if case.startswith("sanitizer"):
+        monkeypatch.setattr(compaction, "debug_checks_enabled", lambda: True)
+    ran = {op: 0 for op in FUSED_OPS}
+
+    def counted(op):
+        real = getattr(ops, op)
+
+        def run(*a, **kw):
+            ran[op] += 1
+            return real(*a, **kw)
+        return run
+
+    for op in FUSED_OPS:
+        monkeypatch.setattr(ops, op, counted(op))
+    inputs, sizes = _dict_batch(name, 6)
+    tracing.clear()
+    tracing.record(True)
+    try:
+        tapi.solve(spec, inputs, 0.05, policy, sizes=sizes, device="cpu")
+        (root,) = [s for s in tracing.recorded() if s["name"] == "solve"]
+    finally:
+        tracing.record(None)
+        tracing.clear()
+    assert (sum(ran.values()) > 0) == (route == "fused"), ran
+    assert root["route"] == route
+
+
 def test_obs_events_and_sync_counts():
     from repro_torch.core import device
 

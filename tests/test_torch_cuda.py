@@ -184,8 +184,11 @@ def test_cost_matrix_kernel_vs_plain(dev, metric, b, m, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["assignment", "ot"])
 def test_solve_on_card_equals_cpu(dev, name):
-    """The same float costs solved on the card (through the kernels) and
-    on the CPU (plain versions) give the same integer state."""
+    """The same float costs solved on the card on the stepped route
+    (through ``slack_propose``) and on the CPU (plain versions) give the
+    same integer state."""
+    from repro_torch.core.api import DispatchPolicy
+
     rng = np.random.default_rng(3)
     insts = []
     for n in (20, 45, 64):
@@ -195,7 +198,8 @@ def test_solve_on_card_equals_cpu(dev, name):
             rng.dirichlet(np.ones(n)).astype(np.float32)))
     spec = ASSIGNMENT if name == "assignment" else OT
     before = ops.launches["slack_propose"]
-    card = solve(spec, insts, 0.05, want=("cost", "state"), device=dev)
+    card = solve(spec, insts, 0.05, DispatchPolicy(fused=False),
+                 want=("cost", "state"), device=dev)
     assert ops.launches["slack_propose"] > before
     cpu = solve(spec, insts, 0.05, want=("cost", "state"), device="cpu")
     for a, b in zip(card, cpu):
@@ -465,6 +469,80 @@ def test_fused_solve_on_card_equals_stepped_cpu(dev, name, mode):
         assert _states_equal(a.state(), b.state())
 
 
+def _host_artifacts(sol, spec):
+    """Every artifact of a SolutionBatch as host arrays, by name."""
+    import dataclasses
+
+    out = {}
+    for name in spec.artifacts:
+        if name == "stats":
+            continue
+        a = getattr(sol, name)()
+        if dataclasses.is_dataclass(a):
+            a = dataclasses.astuple(a)
+        elif name == "state":
+            a = tuple(t.cpu() for t in a)
+        out[name] = tuple(np.asarray(v) for v in
+                          (a if isinstance(a, tuple) else (a,)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["assignment", "ot"])
+def test_default_policy_on_card_is_fused_and_equals_stepped(dev, name):
+    """``DispatchPolicy()`` on the card runs every chunk as a fused launch
+    (the root span counts no ``slack_propose`` and takes the fused route)
+    and gives the stepped route's integer state and every artifact bit
+    for bit, at no higher peak memory: B = 16 Fig. 1 instances of 1024
+    points a side, and one OT instance of 512."""
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.obs import tracing
+
+    rng = np.random.default_rng(30)
+    b, n, eps = (16, 1024, 0.01) if name == "assignment" else (1, 512, 0.05)
+    x = rng.uniform(size=(b, n, 2)).astype(np.float32)
+    y = rng.uniform(size=(b, n, 2)).astype(np.float32)
+    inputs = {"c": build_cost_matrix(x, y, "euclidean", device=dev)}
+    if name == "ot":
+        for k in ("nu", "mu"):
+            inputs[k] = torch.as_tensor(rng.dirichlet(
+                np.ones(n), size=b).astype(np.float32), device=dev)
+    spec = ASSIGNMENT if name == "assignment" else OT
+    want = tuple(a for a in spec.artifacts if a != "stats")
+
+    def run(policy):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tracing.clear()
+        tracing.record(True)
+        try:
+            sol = solve(spec, inputs, eps, policy, want=want, device=dev)
+            arts = _host_artifacts(sol, spec)
+            del sol
+            torch.cuda.synchronize(dev)
+            (root,) = [s for s in tracing.recorded() if s["name"] == "solve"]
+        finally:
+            tracing.record(None)
+            tracing.clear()
+        return arts, root, torch.cuda.max_memory_allocated(dev)
+
+    solve(spec, inputs, eps, DispatchPolicy(), device=dev)    # builds
+    stepped, sroot, speak = run(DispatchPolicy(fused=False))
+    fused, froot, fpeak = run(DispatchPolicy())
+    kernel = f"fused_{name}_phases"
+    assert froot["route"] == "fused" and sroot["route"] == "stepped"
+    assert froot["launches"].get("slack_propose", 0) == 0
+    assert froot["launches"][kernel] == froot["chunks"] > 0
+    assert sroot["launches"]["slack_propose"] > 0
+    assert kernel not in sroot["launches"]
+    assert set(fused) == set(stepped) == set(want)
+    for art in want:
+        for a, s in zip(fused[art], stepped[art]):
+            np.testing.assert_array_equal(a, s, err_msg=art)
+    assert fpeak <= speak
+
+
 def _sinkhorn_row_inputs(dev, b, m, n, seed):
     """Per-lane reg from eps in {0.3, 0.1, 0.05, 0.03}, ragged valid blocks
     (cost 0 and zero mass outside), the last lane with zero mass."""
@@ -703,9 +781,10 @@ def test_sinkhorn_solve_on_card_equals_cpu(dev, fused):
 @pytest.mark.cuda
 def test_scheduler_round_trip_on_card_launches_kernels(dev):
     """AsyncOTScheduler on the card: every bucket builds its costs with
-    the cost_matrix kernel and proposes with slack_propose, every request
-    resolves at ladder level 0, and each bucket's integer state equals a
-    direct solve() of the same padded costs on the card and on the CPU."""
+    the cost_matrix kernel and runs its chunks on the fused kernels (the
+    default route on the card), every request resolves at ladder level 0,
+    and each bucket's integer state equals a direct solve() of the same
+    padded costs on the card and on the CPU (the stepped route)."""
     from repro_torch.core.api import DispatchPolicy
     from repro_torch.serve.scheduler import AsyncOTScheduler
 
@@ -740,7 +819,9 @@ def test_scheduler_round_trip_on_card_launches_kernels(dev):
         assert s.stats_dict()["degraded"] == 0
     launched = dict(ops.launches)
     assert launched["cost_matrix"] == len(items) >= 2   # one per bucket
-    assert launched["slack_propose"] > 0
+    assert launched["slack_propose"] == 0
+    assert launched["fused_assignment_phases"] > 0
+    assert launched["fused_ot_phases"] > 0
     for sol in sols:
         assert (sol.stats.ladder_level, sol.stats.attempts) == (0, 1)
         assert not sol.degraded

@@ -292,9 +292,12 @@ def test_from_legacy_equals_reference(compact):
     ref = japi.DispatchPolicy.from_legacy(compact, **kw)
     got = tapi.DispatchPolicy.from_legacy(compact, **kw)
     for f in ("mode", "chunk", "buckets", "guaranteed", "want", "solver",
-              "placement", "validate", "fused"):
+              "placement", "validate"):
         assert getattr(got, f) == getattr(ref, f), f
     assert got.resolved_mode() == ref.resolved_mode()
+    # fused: None, resolved per bucket; on the CPU it is the reference's
+    assert got.fused is None
+    assert got.fused_for(tapi.ASSIGNMENT, "cpu") == ref.fused
 
 
 def test_from_legacy_mesh_rules():

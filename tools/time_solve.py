@@ -5,11 +5,12 @@
                                 [--fused]
 
 Solves the n = 10 000 assignment of ``chip_smoke.py`` (uniform points in
-the unit square, euclidean, eps = 0.01) once under the default policy to
-warm up, then ``reps`` times under the default policy and once under
-``guaranteed=True``. With ``--fused`` each of those solves is paired with
-the same solve on the fused route (``DispatchPolicy(fused=True)``), in
-turns (stepped, fused, fused, stepped, ...), so the two routes are
+the unit square, euclidean, eps = 0.01) once on the stepped route
+(``DispatchPolicy(fused=False)``) to warm up, then ``reps`` times on it
+and once under ``guaranteed=True``. With ``--fused`` each of those solves
+is paired with the same solve on the fused route
+(``DispatchPolicy(fused=True)``, the default on the card), in turns
+(stepped, fused, fused, stepped, ...), so the two routes are
 compared in one call on one card. Prints one JSON line: the wall seconds
 of each solve (host clock around a solve that ends in a device
 synchronize), phases, rounds and host syncs by kind. It imports
@@ -64,11 +65,12 @@ def main() -> int:
                 "rounds": s.rounds, "cost": cost,
                 "syncs": dict(rdev.sync_counts)}
 
-    run(DispatchPolicy())                   # warm-up (kernel build, caches)
+    stepped = DispatchPolicy(fused=False)
+    run(stepped)                            # warm-up (kernel build, caches)
     out = {"label": args.label, "tree": str(root)}
     if not args.fused:
-        out["default"] = [run(DispatchPolicy()) for _ in range(args.reps)]
-        out["guaranteed"] = run(DispatchPolicy(guaranteed=True))
+        out["default"] = [run(stepped) for _ in range(args.reps)]
+        out["guaranteed"] = run(DispatchPolicy(guaranteed=True, fused=False))
     else:
         run(DispatchPolicy(fused=True))     # warm-up of the fused route
         for key, kw in (("default", {}),
