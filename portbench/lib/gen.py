@@ -19,7 +19,12 @@ starts when the previous one has returned.
                the run's seed
 
 The configuration names the points' law (``points``) and the masses'
-(``masses``, or false for an assignment).
+(``masses``, or false for an assignment). The harness draws a pool only
+for a configuration that names a point law; an entry whose inputs are
+not point clouds (a trainer's batches, an engine's prompts) makes its
+own from the run's seed, one named stream a kind of draw
+(``rng_for(seed, "tokens")``), so that the same seed gives the same
+inputs.
 """
 from __future__ import annotations
 

@@ -8,11 +8,13 @@ Everything a cell is made of is found by its name:
                                   which metrics it reports
   portbench/workloads/<cell>.json the traffic's parameters, the entry
                                   that drives the program, the check
-  portbench/configs/<config>.json the problem: points, masses, metric,
-                                  eps, the reference and its guarantees
+  portbench/configs/<config>.json the problem as run, the reference and
+                                  its guarantees; a point-cloud problem
+                                  also its point law (``points``)
   portbench/entries/<entry>.py    drives the program through a window
   portbench/metrics/<metric>.py   reads one metric from the window
-  portbench/reference/<ref>.py    the plain reference of a problem
+  portbench/reference/<ref>.py    the plain reference of a problem:
+                                  ``check(instance, answer, config)``
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ class Cell:
     config: dict         # portbench/configs/<config>.json
     end_to_end: List[dict]
     per_layer: List[dict]
+    root: Path = ROOT    # the checkout its files were found in
 
 
 def _reported_in(metric: dict, cell: str) -> bool:
@@ -64,23 +67,25 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         end_to_end=[m for m in manifest["end_to_end"]
                     if _reported_in(m, name)],
         per_layer=[m for m in manifest["per_layer"]
-                   if _reported_in(m, name)])
+                   if _reported_in(m, name)],
+        root=root)
 
 
 _MODULES: Dict[Path, Any] = {}
 
 
 def load_file(kind: str, name: str, root: Path = ROOT):
-    """The module ``portbench/<kind>/<name>.py``: an entry or a reference
-    by its package name, a metric file by its path (a metric's name may
-    hold dots)."""
-    if kind != "metrics":
+    """The module ``<root>/portbench/<kind>/<name>.py``: an entry or a
+    reference of this package by its package name (a reference may import
+    its siblings), any other file by its path (a metric's name may hold
+    dots)."""
+    path = Path(root) / "portbench" / kind / f"{name}.py"
+    if kind != "metrics" and Path(root).resolve() == ROOT:
         return importlib.import_module(f"portbench.{kind}.{name}")
-    path = root / "portbench" / kind / f"{name}.py"
     mod = _MODULES.get(path)
     if mod is None:
         spec = importlib.util.spec_from_file_location(
-            "portbench_metric_" + name.replace(".", "_").replace("-", "_"),
+            f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_"),
             path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
@@ -112,9 +117,12 @@ class Window:
 
 @dataclass
 class Env:
-    """What an entry gets: the cell, the device, the calls from the
-    seed, the window's length, whether to trace, and where the set-up
-    started."""
+    """What an entry gets: the cell, the device, the seed, the closed
+    loop's pool of calls, the window's length, whether to trace, and
+    where the set-up started. The pool is drawn only for a configuration
+    that names a point law (``points``); for any other, ``calls`` is
+    empty and the entry makes its own inputs from ``seed``, each kind of
+    draw from its own stream, ``gen.rng_for(seed, <stream>)``."""
     torch: Any
     device: Any
     cell: Cell
@@ -142,9 +150,10 @@ class Env:
 def check_answers(cell: Cell, answers: List[tuple], seed: int,
                   count: int) -> Dict[str, float]:
     """The worst of each reference number over a sample of ``count``
-    answers drawn from the seed, the largest instance always among
-    them."""
-    ref = load_file("reference", cell.config["reference"])
+    answers drawn from the seed, the largest instance (by the product of
+    its ``shape``) always among them. Each answer is judged by the
+    configuration's reference, ``check(instance, answer, config)``."""
+    ref = load_file("reference", cell.config["reference"], cell.root)
     if not answers:
         return {}
     rng = gen.rng_for(seed, "check")
@@ -153,16 +162,9 @@ def check_answers(cell: Cell, answers: List[tuple], seed: int,
                   key=lambda i: np.prod(answers[i][0].shape))
     pick = [largest] + [i for i in order if i != largest][:max(0, count - 1)]
     worst: Dict[str, float] = {}
-    cfg = cell.config
     for i in pick:
         inst, out = answers[i]
-        if inst.nu is None:
-            nums = ref.certify(inst.x, inst.y, cfg["metric"], cfg["eps"],
-                               out)
-        else:
-            nums = ref.certify(inst.x, inst.y, inst.nu, inst.mu,
-                               cfg["metric"], cfg["eps"], out)
-        for k, v in nums.items():
+        for k, v in ref.check(inst, out, cell.config).items():
             v = float(v)
             if k not in worst or not (v <= worst[k]):
                 worst[k] = v
@@ -200,10 +202,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     and notes for standard error."""
     if torch is None:
         import torch
-    calls = gen.make_calls(cell.config, cell.params, seed)
+    calls = (gen.make_calls(cell.config, cell.params, seed)
+             if "points" in cell.config else [])
     env = Env(torch=torch, device=device, cell=cell, seed=seed,
               seconds=seconds, trace=trace, t_start=t_start, calls=calls)
-    entry = load_file("entries", cell.params["entry"])
+    entry = load_file("entries", cell.params["entry"], cell.root)
     w = entry.run(env)
     t_check = time.monotonic()
     checks = check_answers(cell, w.answers, seed,
@@ -213,7 +216,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     within, rows = judge(checks, limits)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
-        v = load_file("metrics", m["name"]).read(w)
+        v = load_file("metrics", m["name"], cell.root).read(w)
         if v is not None:
             metrics[m["name"]] = {"value": _finite(float(v)),
                                   "unit": m["unit"]}

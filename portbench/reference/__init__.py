@@ -1,4 +1,6 @@
-"""The plain reference: NumPy only. It imports nothing of the program
-under test, nor JAX, and works everything out from the inputs the
+"""The plain references: plain NumPy or plain torch. A reference
+imports nothing of the program under test, nor JAX, nor the benchmark's
+own ``entries`` or ``lib``, and works everything out from the inputs the
 benchmark made. A configuration names its module here under
-``"reference"``."""
+``"reference"``; the module's ``check(instance, answer, config)`` gives
+the numbers that one answer is held to."""

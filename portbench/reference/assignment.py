@@ -26,6 +26,13 @@ from .costs import pair_costs, scale_and_excess
 NUMBERS = ("perm_bad", "cost_err", "dual_excess", "gap_ratio")
 
 
+def check(instance, answer: dict, config: dict) -> dict:
+    """The numbers of one answer to ``instance`` (its points ``x``,
+    ``y``) under the configuration's ``metric`` and ``eps``."""
+    return certify(instance.x, instance.y, config["metric"], config["eps"],
+                   answer)
+
+
 def certify(x, y, metric: str, eps: float, out: dict) -> dict:
     """``out``: the program's answer for one instance, host arrays
     ``matching`` (m,), ``y_b`` (m,), ``y_a`` (n,) and the float ``cost``."""

@@ -27,6 +27,14 @@ from .costs import pair_costs, scale_and_excess
 NUMBERS = ("marg_err", "cost_err", "dual_excess", "gap_ratio")
 
 
+def check(instance, answer: dict, config: dict) -> dict:
+    """The numbers of one answer to ``instance`` (its points ``x``,
+    ``y`` and masses ``nu``, ``mu``) under the configuration's ``metric``
+    and ``eps``."""
+    return certify(instance.x, instance.y, instance.nu, instance.mu,
+                   config["metric"], config["eps"], answer)
+
+
 def certify(x, y, nu, mu, metric: str, eps: float, out: dict) -> dict:
     """``out``: the program's answer for one instance, host arrays
     ``rows``, ``cols``, ``vals`` (the plan's triplets), ``y_b`` (m,),

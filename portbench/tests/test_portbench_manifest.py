@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's rules, and every name in it
 against its file; no module of the benchmark imports JAX or the JAX
-package, and the reference imports nothing of the program."""
+package, and a reference is plain NumPy or plain torch and imports
+nothing of the program nor of the benchmark's entries and lib."""
 import ast
 import json
 import re
@@ -142,10 +143,15 @@ def test_every_cell_resolves_to_its_files(cell):
     conf = next(c for c in MANIFEST["configs"]
                 if c["name"] == entry["config"])
     config = json.loads((ROOT / conf["file"]).read_text())
-    assert (BENCH / "reference" / f"{config['reference']}.py").is_file()
-    laws = [("sizes", params["sizes"]["law"]), ("points", config["points"])]
-    if config.get("masses"):
-        laws.append(("masses", config["masses"]))
+    ref = BENCH / "reference" / f"{config['reference']}.py"
+    assert "check" in {n.name for n in ast.parse(ref.read_text()).body
+                       if isinstance(n, ast.FunctionDef)}, ref
+    # each law where it is named; a point law draws the closed loop's
+    # pool, which needs a size law too
+    laws = [(role, config[role]) for role in ("points", "masses")
+            if config.get(role)]
+    if "points" in config or "sizes" in params:
+        laws.append(("sizes", params["sizes"]["law"]))
     for role, law in laws:
         assert (BENCH / "traffic" / f"{role}_{law}.py").is_file(), law
 
@@ -180,9 +186,24 @@ def test_no_jax_nor_the_jax_package(path):
     assert not _imports(path) & {"jax", "jaxlib", "flax", "repro"}
 
 
-def test_the_reference_is_plain_numpy():
-    for path in (BENCH / "reference").glob("*.py"):
-        assert _imports(path) <= {"__future__", "numpy"}, path
+REFERENCES = sorted((BENCH / "reference").glob("*.py"))
+# the references of the point-cloud cells, NumPy alone
+NUMPY_ONLY = {"__init__.py", "assignment.py", "costs.py", "transport.py"}
+
+
+@pytest.mark.parametrize("path", REFERENCES,
+                         ids=[p.name for p in REFERENCES])
+def test_the_reference_is_plain_numpy(path):
+    """Plain NumPy or plain torch: no other package, no import that climbs
+    out of ``reference/`` (the benchmark's ``entries`` and ``lib``); the
+    references of the point-cloud cells NumPy alone."""
+    climbs = [n for n in ast.walk(ast.parse(path.read_text()))
+              if isinstance(n, ast.ImportFrom) and n.level > 1]
+    assert not climbs, path
+    allowed = {"__future__", "math", "numpy", "torch"}
+    if path.name in NUMPY_ONLY:
+        allowed = {"__future__", "numpy"}
+    assert _imports(path) <= allowed, path
 
 
 def test_top_level_names_are_compared_whole(monkeypatch):
