@@ -70,7 +70,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..configs.registry import (
-    ARCHS, SHAPES, SMOKE_SHAPES, reduced, shape_applicable,
+    ARCHS, SHAPES, SMOKE_SHAPES, get_arch, reduced, shape_applicable,
 )
 from ..models import model as M
 from ..models import sharding
@@ -550,7 +550,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                parallel_block: bool = False):
     """Returns (plan, meta) for one (arch x shape x mesh) cell, or
     (None, {"skipped": reason})."""
-    cfg = ARCHS[arch]
+    cfg = get_arch(arch)
     if smoke:
         cfg = reduced(cfg)
     if router:

@@ -24,6 +24,16 @@ scatter-adds into fixed lengths, not ``bincount``), so the layer runs
 under ``FakeTensorMode``, which the dry-run's plans use: there
 ``pushrelabel_assign`` launches nothing and records its launch instead.
 
+``norm_topk_prob`` (a port-only config field, DeepSeek-V2's; True when
+a config lacks it): with it False the gates are the softmax
+probabilities at the chosen experts as they are, not renormalised over
+the k. ``tap(RouterTap())`` installs a hook, off by default (one ``is
+None`` test a call when off), that counts the routers' launches and
+units, the units the phase budget left to the fallback and the entries
+the dispatch dropped past capacity, as device tensors summed only when
+read; with ``capture=True`` it also keeps each push-relabel call's
+``c_int``, flow and ``sel``.
+
 Dispatch is sort-based (stable argsort by expert id -> rank within expert
 -> capacity-bounded scatter into a buffer with one sink row that takes
 the dropped entries), no (T, E, C) one-hot tensors. The return of the
@@ -34,6 +44,7 @@ so it is deterministic on the card (an atomic ``index_add_`` is not).
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +53,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.transport import OTState
 from ..kernels import ops
+from ..obs import tracing
 from ..roofline.plan import record_custom_call
 from .layers import _init, glu_mlp, glu_mlp_init
 
@@ -78,13 +90,13 @@ def _normalize(gates):
     return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
 
-def route_topk(logits, k):
+def route_topk(logits, k, norm: bool = True):
     probs = torch.softmax(logits.float(), dim=-1)
     gates, sel = _top_k(probs, k)
-    return sel.to(torch.int32), _normalize(gates)
+    return sel.to(torch.int32), _normalize(gates) if norm else gates
 
 
-def route_sinkhorn(logits, k, iters: int = 8):
+def route_sinkhorn(logits, k, iters: int = 8, norm: bool = True):
     """Balanced gating via Sinkhorn normalization of the prob matrix
     (S-BASE style). Selection through the balanced matrix, gate values from
     the raw softmax."""
@@ -100,7 +112,7 @@ def route_sinkhorn(logits, k, iters: int = 8):
     _, sel = _top_k(balanced.detach(), k)
     probs = torch.softmax(logits.float(), dim=-1)
     gates = torch.gather(probs, 1, sel)
-    return sel.to(torch.int32), _normalize(gates)
+    return sel.to(torch.int32), _normalize(gates) if norm else gates
 
 
 def router_costs(affinity, levels: int = 16):
@@ -164,7 +176,7 @@ def pushrelabel_assign(
     return (state.f_hi + state.f_lo)[0]
 
 
-def route_pushrelabel(logits, k, *, phases: int = 24):
+def route_pushrelabel(logits, k, *, phases: int = 24, norm: bool = True):
     t, e = logits.shape
     capacity = -(-t * k // e)  # ceil: perfectly balanced demand
     flow = pushrelabel_assign(logits.detach(), k, capacity, phases=phases)
@@ -187,14 +199,87 @@ def route_pushrelabel(logits, k, *, phases: int = 24):
     # gather sums those slots by an accumulating index_put_, which sorts
     # on the card and is deterministic (torch.gather's scatter_add is not)
     gates = probs[rows[:, None], sel.long()]
-    return sel, _normalize(gates)
+    if _TAP is not None and not _abstract(logits):
+        _TAP.routed(logits, flow, sel, k)
+    return sel, _normalize(gates) if norm else gates
 
 
 ROUTERS = {
-    "topk": lambda logits, k: route_topk(logits, k),
-    "sinkhorn": lambda logits, k: route_sinkhorn(logits, k),
-    "pushrelabel": lambda logits, k: route_pushrelabel(logits, k),
+    "topk": lambda logits, k, norm=True: route_topk(logits, k, norm),
+    "sinkhorn": lambda logits, k, norm=True: route_sinkhorn(logits, k,
+                                                            norm=norm),
+    "pushrelabel": lambda logits, k, norm=True: route_pushrelabel(
+        logits, k, norm=norm),
 }
+
+
+def route(cfg, logits):
+    """(sel, gates) of ``cfg``'s router over (T, E) float32 logits; the
+    gates renormalised over the k unless ``cfg.norm_topk_prob`` is False."""
+    with tracing.span("moe.route"):
+        return ROUTERS[cfg.router](logits, cfg.top_k,
+                                   getattr(cfg, "norm_topk_prob", True))
+
+
+# --------------------------------------------------------------------------
+# The router's hook: counts for the step's root span, captures for checks
+# --------------------------------------------------------------------------
+
+class RouterTap:
+    """What the MoE layers did while the tap was installed (``tap``), on
+    any thread (the remat recompute runs on autograd's): ``launches`` and
+    ``units`` (k T a call) of the push-relabel router, and the device
+    tensors of the units its phase budget left to the ``argmax``
+    fallback and of the dispatch's entries past capacity (into the sink
+    row), summed on the device only by ``device_counts``. With
+    ``capture``, ``calls`` keeps each push-relabel call's ``c_int`` (T,
+    E) int32, ``flow`` (T, E) int32 and ``sel`` (T, k) int32, in call
+    order."""
+
+    def __init__(self, capture: bool = False):
+        self.capture = capture
+        self.launches = 0
+        self.units = 0
+        self.calls = []
+        self._unmatched = []
+        self._dropped = []
+
+    def routed(self, logits, flow, sel, k: int) -> None:
+        t = logits.shape[0]
+        self.launches += 1
+        self.units += k * t
+        self._unmatched.append(k * t - flow.sum(dtype=torch.int64))
+        if self.capture:
+            self.calls.append({"c_int": router_costs(logits.detach()),
+                               "flow": flow, "sel": sel})
+
+    def dropped(self, n: torch.Tensor) -> None:
+        self._dropped.append(n)
+
+    def device_counts(self):
+        """(2,) float64 on the device: unmatched units and dropped entries
+        summed, or None when nothing was counted."""
+        parts = [torch.stack(xs).sum() if xs else None
+                 for xs in (self._unmatched, self._dropped)]
+        ref = next((p_ for p_ in parts if p_ is not None), None)
+        if ref is None:
+            return None
+        return torch.stack([(p_ if p_ is not None else torch.zeros_like(ref))
+                            .to(torch.float64) for p_ in parts])
+
+
+_TAP = None
+
+
+@contextmanager
+def tap(hook: "RouterTap"):
+    """Install ``hook`` for the body (the previous one restored after)."""
+    global _TAP
+    prev, _TAP = _TAP, hook
+    try:
+        yield hook
+    finally:
+        _TAP = prev
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +308,8 @@ def _dispatch_local(tokens, sel, gates, e0, e_loc, cap):
     seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
     rank = idx - seg_start
     ok = (e_sorted < e_loc) & (rank < cap)
+    if _TAP is not None and not _abstract(tokens):
+        _TAP.dropped(((e_sorted < e_loc) & ~ok).sum(dtype=torch.int64))
     # entries that do not fit land in the sink row n_slots, dropped below
     slot = torch.where(ok, e_sorted * cap + rank, n_slots).long()
     tok_sorted = flat_tok[order]
@@ -282,7 +369,7 @@ def moe_forward(p, cfg, x):
     tokens = x.reshape(b * s, d)
     # the reference's f32 @ bf16 promotes to f32: the router in f32
     logits = tokens.float() @ p["router"].float()
-    sel, gates = ROUTERS[cfg.router](logits, cfg.top_k)
+    sel, gates = route(cfg, logits)
     e_loc = p["w_gate"].shape[0]
     experts = {k_: p[k_] for k_ in ("w_gate", "w_up", "w_down")}
     out = moe_local_forward(experts, cfg, tokens, sel, gates, 0, e_loc)
@@ -308,7 +395,7 @@ def moe_forward_ep(p, cfg, x, devices, experts):
     home = devices[0]
     tokens = x.reshape(b * s, d).to(home)
     logits = tokens.float() @ p["router"].to(home).float()
-    sel, gates = ROUTERS[cfg.router](logits, cfg.top_k)
+    sel, gates = route(cfg, logits)
     e_loc = experts["w_gate"][0].shape[0]
     out = None
     for t, dev in enumerate(devices):

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     attn_init, attn_forward, attn_prefill, attn_decode, cross_attn_forward,
-    flash_attention,
+    flash_attention, is_mla, mla_forward, mla_init, no_latent_cache,
 )
 from .layers import glu_mlp, glu_mlp_init, rmsnorm, rmsnorm_init
 from .mamba import mamba_init, mamba_forward, mamba_decode
@@ -75,7 +75,7 @@ def layer_init(gen, cfg, ltype, ffn, dtype, router_dtype=torch.float32):
     dev = gen.device
     if ltype in ("attn", "attn_cross"):
         p["ln1"] = rmsnorm_init(d, dtype, dev)
-        p["attn"] = attn_init(gen, cfg, dtype)
+        p["attn"] = (mla_init if is_mla(cfg) else attn_init)(gen, cfg, dtype)
         if ltype == "attn_cross":
             p["ln_x"] = rmsnorm_init(d, dtype, dev)
             p["xattn"] = attn_init(gen, cfg.with_(qk_norm=False), dtype)
@@ -170,15 +170,16 @@ def apply_moe(p, cfg, x):
 # --------------------------------------------------------------------------
 
 def apply_layer(lp, cfg, lt, ffn, x, positions, memory=None, causal=True):
+    attend = mla_forward if is_mla(cfg) else attn_forward
     if cfg.parallel_block and lt == "attn" and ffn == "mlp":
         # parallel residual: attention and MLP both read x
-        h = attn_forward(lp["attn"], cfg, rmsnorm(lp["ln1"], x), positions,
-                         causal=causal)
+        h = attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x), positions,
+                   causal=causal)
         h = h + glu_mlp(lp["mlp"], rmsnorm(lp["ln2"], x))
         return x + h
     if lt in ("attn", "attn_cross"):
-        x = x + attn_forward(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
-                             positions, causal=causal)
+        x = x + attend(lp["attn"], cfg, rmsnorm(lp["ln1"], x), positions,
+                       causal=causal)
         if lt == "attn_cross":
             x = x + cross_attn_forward(
                 lp["xattn"], cfg, rmsnorm(lp["ln_x"], x), memory
@@ -224,6 +225,8 @@ def stages_forward(stage_params, cfg, stages, x, positions, memory=None,
 # --------------------------------------------------------------------------
 
 def layer_prefill(lp, cfg, lt, ffn, x, positions, memory=None):
+    if is_mla(cfg) and lt in ("attn", "attn_cross"):
+        no_latent_cache()
     cache = {}
     if cfg.parallel_block and lt == "attn" and ffn == "mlp":
         h, (k, v) = attn_prefill(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
@@ -264,6 +267,8 @@ def _cross_decode(p, cfg, x, ck, cv):
 
 
 def layer_decode(lp, cfg, lt, ffn, x, cache, pos):
+    if is_mla(cfg) and lt in ("attn", "attn_cross"):
+        no_latent_cache()
     new_cache = {}
     if lt in ("attn", "attn_cross"):
         h, (k, v) = attn_decode(

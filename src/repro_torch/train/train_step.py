@@ -10,13 +10,21 @@ view of each leaf that requires grad, so the leaves themselves stay plain
 tensors); with ``grad_accum > 1`` the batch's rows are cut into
 ``grad_accum`` contiguous micro-batches, as the reference's reshape
 ``(grad_accum, B // grad_accum, ...)`` cuts them, and the losses and
-gradients are summed, then scaled by ``1 / grad_accum``."""
+gradients are summed, then scaled by ``1 / grad_accum``. Inside a
+traced ``Trainer.train_step`` the step's two halves are the spans
+``train.loss_grad`` (forward, backward and the remat recompute, which
+runs on autograd's thread and opens no span of its own) and
+``train.optim`` (the clip and the optimizer). ``watch_grads`` hands
+each step's gradients, before the clip, to a check."""
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
 from ..models import model as M
 from ..models.model import leaves
+from ..obs import tracing
 from ..optim.optimizer import (
     clip_by_global_norm, cosine_schedule, make_optimizer,
 )
@@ -61,6 +69,23 @@ def value_and_grad(loss_fn, params, batch, grad_accum: int = 1):
     return loss, grads
 
 
+_WATCH = None
+
+
+@contextmanager
+def watch_grads(fn):
+    """Call ``fn(grads)`` in every step of the body with the step's
+    gradients: float32, in ``leaves(params)`` order, before the clip
+    scales them in place (``fn`` copies what it keeps). Off, the default,
+    a step pays one test."""
+    global _WATCH
+    prev, _WATCH = _WATCH, fn
+    try:
+        yield fn
+    finally:
+        _WATCH = prev
+
+
 def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10_000, grad_accum: int = 1,
                     max_grad_norm: float = 1.0):
@@ -73,9 +98,13 @@ def make_train_step(cfg, *, lr: float = 3e-4, warmup: int = 100,
     loss_fn = make_loss(cfg)
 
     def step_fn(params, opt_state, batch):
-        loss, grads = value_and_grad(loss_fn, params, batch, grad_accum)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        params, opt_state = opt_step(params, grads, opt_state)
+        with tracing.span("train.loss_grad"):
+            loss, grads = value_and_grad(loss_fn, params, batch, grad_accum)
+        if _WATCH is not None:
+            _WATCH(grads)
+        with tracing.span("train.optim"):
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            params, opt_state = opt_step(params, grads, opt_state)
         return params, opt_state, {
             "loss": loss,
             "grad_norm": gnorm,

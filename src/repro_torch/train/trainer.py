@@ -34,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from contextlib import nullcontext
 from typing import Any, Optional
 
 import torch
@@ -42,7 +43,9 @@ from ..checkpoint import checkpointing as ckpt
 from ..core.device import resolve_device
 from ..data.pipeline import synthetic_batch
 from ..models import model as M
+from ..models import moe
 from ..models.sharding import ShardedTensor
+from ..obs import tracing
 from .train_step import make_train_step
 
 
@@ -57,6 +60,7 @@ class Trainer:
         self.workdir = workdir
         self.seq_len = seq_len
         self.batch_size = batch_size
+        self.grad_accum = grad_accum
         self.seed = seed
         self.ckpt_every = ckpt_every
         self.device = resolve_device(device)
@@ -115,9 +119,19 @@ class Trainer:
             {"params": self.params, "opt": self.opt_state}, async_=True,
         )
 
-    def run(self, num_steps: int):
-        history = []
-        for _ in range(num_steps):
+    def train_step(self):
+        """One iteration of ``run()``'s loop, without its checkpoint: the
+        step's batch, the step, the loss read (the step's one wait for the
+        card), the straggler EWMA and the metrics log line. Returns that
+        line's record. While the tracer records (``obs.tracing``), the
+        step is the root span ``train.step`` (children
+        ``train.loss_grad`` and ``train.optim``, and within the forward
+        ``attn.mla`` and ``moe.route``), and its counts are the MoE
+        layers': ``moe.router.launches``, ``moe.router.units``,
+        ``moe.router.unmatched`` and ``moe.dispatch.dropped``, summed on
+        the card and read with the loss, so they add no wait."""
+        with tracing.root("train.step") as sp:
+            hook = moe.RouterTap() if sp is not None else None
             batch_np = synthetic_batch(
                 self.cfg, self.seq_len, self.batch_size,
                 seed=self.seed, step=self.step,
@@ -125,10 +139,22 @@ class Trainer:
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in batch_np.items()}
             t0 = time.perf_counter()
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch
-            )
-            loss = float(metrics["loss"])  # sync point
+            with moe.tap(hook) if hook is not None else nullcontext():
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch
+                )
+            counts = hook.device_counts() if hook is not None else None
+            if counts is None:
+                loss = float(metrics["loss"])  # sync point
+            else:
+                read = torch.cat([metrics["loss"].double()[None],
+                                  counts]).tolist()  # sync point
+                loss = read[0]
+                for key, n in (("moe.router.launches", hook.launches),
+                               ("moe.router.units", hook.units),
+                               ("moe.router.unmatched", read[1]),
+                               ("moe.dispatch.dropped", read[2])):
+                    tracing.add(key, n)
             dt = time.perf_counter() - t0
             if self._ewma is None:
                 self._ewma = dt
@@ -140,9 +166,14 @@ class Trainer:
             rec = {"step": self.step, "loss": loss, "time_s": dt,
                    "grad_norm": float(metrics["grad_norm"]),
                    "stragglers": self.straggler_events}
-            history.append(rec)
             with open(self.metrics_log, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        return rec
+
+    def run(self, num_steps: int):
+        history = []
+        for _ in range(num_steps):
+            history.append(self.train_step())
             if self.step % self.ckpt_every == 0:
                 self._checkpoint()
         self._checkpoint()
