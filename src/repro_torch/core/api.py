@@ -56,7 +56,7 @@ import torch
 
 from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
-from .compaction import DEFAULT_CHUNK, CompactionStats, solve_compacting
+from .compaction import CompactionStats, solve_compacting
 from .device import resolve_device
 from .distributed import same_device, solve_mesh
 from .problem import (  # noqa: F401  (re-exported with solve)
@@ -85,7 +85,12 @@ class DispatchPolicy:
         ``make_small_mesh(..., devices=...)`` for logical shards); None
         under mode="mesh" means ``make_batch_mesh()``.
       placement: mesh-mode placement: "auto", "batch" or "matrix".
-      chunk: k, phases per chunk of the compacting driver.
+      chunk: k, phases per chunk of the compacting driver, honoured as
+        given. None (the default) is the driver's choice
+        (``compaction.chunk_for``): on the fused route with no
+        ``deadline``, one chunk above every lane's phase cap, so each
+        bucket runs to termination in one launch and one read; with a
+        deadline, on the stepped route and under the debug checks, 8.
       buckets: shape-bucket boundaries for ragged input (None -> the
         ``core/batched.py`` defaults).
       guaranteed: run at eps/3 for the paper's <= OPT + eps*m bound.
@@ -307,7 +312,8 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
                                  dispatches=1, final_state=state)
             return r, st
         return r, None
-    k = DEFAULT_CHUNK if policy.chunk is None else int(policy.chunk)
+    # None goes through: the driver resolves it per bucket (chunk_for)
+    k = None if policy.chunk is None else int(policy.chunk)
     if mode == "mesh":
         return solve_mesh(
             spec, inputs, eps, policy.mesh, sizes=sizes, k=k,

@@ -4,7 +4,8 @@ ProblemSpec (``core/problem.py``).
 Port of ``repro.core.compaction``. A lockstep batch burns phases on every
 lane until the slowest converges; this driver retires converged lanes:
 
-  1. run ``k`` phases on the whole batch bucket (``spec.run_phases``);
+  1. run ``k`` phases on the whole batch bucket (``spec.run_phases``;
+     ``k`` as :func:`chunk_for` resolves it);
   2. fetch the (B,) converged mask with the per-lane phase counters: ONE
      device->host read per chunk;
   3. once occupancy has halved, write the bucket's states into a full-B
@@ -36,7 +37,14 @@ from ..analysis import debug_checks_enabled
 from ..obs import tracing as _tracing
 from ..obs.metrics import now as _now
 from .device import host_numpy
-from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
+from .problem import (
+    ASSIGNMENT,
+    OT,
+    FusedAssignmentSpec,
+    FusedOTSpec,
+    pow2_at_least,
+    tree_map,
+)
 
 DEFAULT_CHUNK = 8
 
@@ -147,7 +155,8 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
             live = int((~conv).sum())
             stats.occupancy.append((bb, live))
             if sp is not None:
-                sp.attrs.update(bucket=bb, live=live, phases=dph)
+                sp.attrs.update(bucket=bb, live=live, phases=dph,
+                                k=stats.chunk)
                 _tracing.add("chunks")
             if obs is not None:
                 obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
@@ -225,7 +234,30 @@ def max_chunk_dispatches(phase_cap: np.ndarray, k: int) -> int:
     return -(-int(phase_cap.max(initial=1)) // max(k, 1)) + 2
 
 
-def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
+def chunk_for(spec, k: Optional[int], deadline: Optional[float],
+              phase_cap: Optional[np.ndarray] = None) -> Tuple[int, bool]:
+    """``(k, runout)``: the phases a chunk of ``spec``'s bucket runs, and
+    whether the driver chose to run the bucket out in that one chunk.
+    An explicit ``k`` is used as given. None is the driver's choice: one
+    chunk above every lane's phase cap (``phase_cap.max() + 1``) where
+    the chunk is one fused push-relabel launch that stops itself lane by
+    lane, no ``deadline`` is set and the debug checks are off (their
+    checked chunk runs stepped); so the bucket runs to termination in
+    one launch and the driver reads once. Otherwise, and with no
+    ``phase_cap`` (an empty batch, matrix placement), ``DEFAULT_CHUNK``:
+    a deadline cuts between chunks, and a stepped chunk reads a flag
+    every round anyway. Results are the same for any k."""
+    if k is not None:
+        return int(k), False
+    if (phase_cap is not None and deadline is None
+            and not debug_checks_enabled()
+            and isinstance(spec, (FusedAssignmentSpec, FusedOTSpec))):
+        return int(phase_cap.max(initial=0)) + 1, True
+    return DEFAULT_CHUNK, False
+
+
+def solve_compacting(spec, inputs, eps, *, sizes=None,
+                     k: Optional[int] = None,
                      guaranteed: bool = False, keep_state: bool = False,
                      deadline: Optional[float] = None, obs=None,
                      device=None, **prep_kw):
@@ -237,7 +269,10 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
       inputs: dict of batched operands (``{"c"}`` or ``{"c", "nu", "mu"}``),
         tensors or arrays; they are moved to ``device``.
       eps: scalar, or (B,) per-instance array.
-      k: phases per chunk; any value gives identical results.
+      k: phases per chunk; any value gives identical results. None
+        lets :func:`chunk_for` choose: on a fused push-relabel spec with
+        no ``deadline``, one chunk that runs the bucket to termination;
+        else ``DEFAULT_CHUNK`` (8).
       keep_state: keep the final pre-completion integer state on
         ``stats.final_state``.
       deadline: absolute ``repro_torch.obs.now()`` budget; the loop stops
@@ -253,10 +288,14 @@ def solve_compacting(spec, inputs, eps, *, sizes=None, k: int = DEFAULT_CHUNK,
     b, m, n = spec.batch_shape(inputs)
     if b == 0:
         return (spec.empty_result(m, n, inputs["c"].device),
-                CompactionStats(batch=0, dispatched_batch=0, chunk=k))
+                CompactionStats(batch=0, dispatched_batch=0,
+                                chunk=chunk_for(spec, k, deadline)[0]))
     with _tracing.span("solve.prepare"):
         p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
                          **prep_kw)
+    k, runout = chunk_for(spec, k, deadline, p.phase_cap)
+    if runout:
+        _tracing.add("runouts")
     if debug_checks_enabled():
         # the sanitizer: checked prologue, chunk and epilogue, on the
         # stepped route (analysis/checked.py); one more read a chunk

@@ -80,6 +80,7 @@ from .compaction import (
     _flush,
     _gather,
     _route,
+    chunk_for,
     max_chunk_dispatches,
     record_phases,
     solve_compacting,
@@ -320,7 +321,7 @@ def _drive_distributed(data, state, run_fn, conv_fn, max_chunks: int,
                 dph = int(per_dev.max(initial=0))
                 if sp is not None:
                     sp.attrs.update(bucket=bb, live=live, phases=dph,
-                                    devices=d_now)
+                                    devices=d_now, k=stats.chunk)
                     _tracing.add("chunks")
                 if obs is not None:
                     obs.event("chunk", bucket=bb, live=live,
@@ -383,7 +384,8 @@ def _resolve_mesh(mesh, batch_axis):
 
 
 def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
-               sizes=None, k: int = DEFAULT_CHUNK, guaranteed: bool = False,
+               sizes=None, k: Optional[int] = None,
+               guaranteed: bool = False,
                batch_axis: str = "data", placement: str = "auto",
                keep_state: bool = False, deadline: Optional[float] = None,
                obs=None, device=None, **prep_kw):
@@ -401,7 +403,11 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
     raises. ``deadline`` cuts the batch placement's chunk loop; matrix
     placement solves instance by instance with no chunk loop to cut and
     ignores it. ``obs`` gets the driver's per-chunk events (batch
-    placement). Returns ``(result, DistributedStats)``."""
+    placement). ``k`` None: batch placement resolves it as the
+    single-device driver does (``compaction.chunk_for``: a fused spec
+    with no deadline runs each shard to termination in one launch), and
+    matrix placement, which is stepped, takes ``DEFAULT_CHUNK``.
+    Returns ``(result, DistributedStats)``."""
     if placement not in ("auto", "batch", "matrix"):
         raise ValueError(f"unknown placement {placement!r}; expected "
                          "'auto', 'batch' or 'matrix'")
@@ -420,8 +426,10 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
         if keep_state and not getattr(spec, "state_on_result", False):
             raise ValueError("keep_state=True requires batch placement "
                              "(pass placement='batch')")
-        return _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed, k,
-                             batch_axis, **prep_kw)
+        # stepped: no run-out
+        return _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed,
+                             chunk_for(spec, k, deadline)[0], batch_axis,
+                             **prep_kw)
     if b == 0 or pow2_at_least(b) < d:
         # below the mesh floor from the start: single-device dispatch
         out, cst = solve_compacting(
@@ -437,6 +445,9 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
         data, ctx = spec.prologue(p.ops)
         ctx = {**ctx, **{kk: p.ops[kk] for kk in spec.ctx_ops}}
         state0 = spec.init_state(data, ctx)
+    k, runout = chunk_for(spec, k, deadline, p.phase_cap)
+    if runout:
+        _tracing.add("runouts")
     stats = DistributedStats(batch=b, dispatched_batch=p.bp, chunk=k,
                              devices=d, batch_axis=batch_axis,
                              placement="batch")

@@ -658,9 +658,6 @@ class FusedAssignmentSpec(AssignmentSpec):
             data["c_int"], state, data["threshold"], data["phase_cap"], k,
             m_valid=data["m_valid"])
 
-    def _lockstep_k(self, eps_arr, m: int) -> int:
-        return max(_max_phases(float(e), m) for e in eps_arr) + 1
-
     def solve_lockstep(self, inputs, eps: float, *, sizes=None,
                        guaranteed: bool = False, keep_state: bool = False,
                        device=None):
@@ -680,9 +677,6 @@ class FusedOTSpec(OTSpec):
             data["c_int"], state, data["threshold"], data["phase_cap"], k,
             int(m + n + 2))
 
-    def _lockstep_k(self, eps_arr, m: int) -> int:
-        return max(ot_phase_cap(float(e)) for e in eps_arr) + 1
-
     def solve_lockstep(self, inputs, eps: float, *, sizes=None,
                        guaranteed: bool = False, keep_state: bool = False,
                        theta=None, device=None):
@@ -693,16 +687,14 @@ class FusedOTSpec(OTSpec):
 
 def _fused_lockstep(spec, inputs, eps, *, sizes, guaranteed, keep_state,
                     device, **prep_kw):
-    """Lockstep for the fused specs: one compacting dispatch with k above
-    every lane's phase cap, so the whole batch runs to termination in a
-    single launch and no compaction ever fires. Returns ``(result, state
-    or None)``."""
+    """Lockstep for the fused specs: the compacting driver with no
+    deadline and its own choice of chunk, which runs the whole bucket to
+    termination in a single launch (``compaction.chunk_for``), so no
+    compaction fires. Returns ``(result, state or None)``."""
     from .compaction import solve_compacting
 
-    b, m, _ = (int(s) for s in np.shape(inputs["c"]))
-    k_all = spec._lockstep_k(eps_array(eps, b, guaranteed), m)
     r, stats = solve_compacting(
-        spec, inputs, eps, sizes=sizes, k=k_all, guaranteed=guaranteed,
+        spec, inputs, eps, sizes=sizes, guaranteed=guaranteed,
         keep_state=keep_state, device=device, **prep_kw)
     return r, (stats.final_state if keep_state else None)
 

@@ -169,7 +169,6 @@ class OTService:
                  admission_tol: Optional[float] = None, sinks=(),
                  solver: str = "pushrelabel", device=None):
         from ..core import batched as B
-        from ..core import compaction as C
         from ..core import validate as V
         from ..core.api import DispatchPolicy
         from ..core.costs import COSTS
@@ -184,7 +183,8 @@ class OTService:
                               else float(admission_tol))
         self.buckets = tuple(buckets) if buckets else B.DEFAULT_BUCKETS
         self.compact = compact
-        self.chunk = C.DEFAULT_CHUNK if chunk is None else int(chunk)
+        # None: the driver's choice per bucket (compaction.chunk_for)
+        self.chunk = None if chunk is None else int(chunk)
         # from_legacy owns the compact/mesh keyword mapping; a mesh decides
         # the device (its first), and a device= naming another raises
         self._policy, self.device = DispatchPolicy.from_legacy(

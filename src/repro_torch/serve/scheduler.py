@@ -271,7 +271,10 @@ class AsyncOTScheduler:
       placement: mesh placement of each bucket ("auto", "batch",
         "matrix"; see ``core/distributed.choose_placement``).
       buckets: shape-bucket boundaries (core/batched.py defaults).
-      chunk: k, phases per dispatch of the compacting driver.
+      chunk: k, phases per dispatch of the compacting driver; None
+        (the default) lets the driver choose per bucket: one launch to
+        termination on the fused route when the bucket has no deadline,
+        else 8 (``core.compaction.chunk_for``).
       max_batch: max requests drained into one collate round.
       linger_ms: optional batching window — after the first request of a
         round arrives, keep draining for this long so co-tenant requests
@@ -314,7 +317,6 @@ class AsyncOTScheduler:
                  solver: str = "pushrelabel", device=None,
                  placement: str = "auto"):
         from ..core import batched as B
-        from ..core import compaction as C
         from ..core import validate as V
         from ..core.api import DispatchPolicy
         from ..core.costs import COSTS
@@ -338,7 +340,8 @@ class AsyncOTScheduler:
         self.metric = metric
         self.mesh = mesh
         self.buckets = tuple(buckets) if buckets else B.DEFAULT_BUCKETS
-        self.chunk = C.DEFAULT_CHUNK if chunk is None else int(chunk)
+        # None: the driver's choice per bucket (compaction.chunk_for)
+        self.chunk = None if chunk is None else int(chunk)
         # every bucket dispatch goes through core/api.solve under this one
         # policy; ``solver`` routes OT buckets through the solver
         # portfolio (ignored when an explicit ``policy`` is passed)

@@ -543,6 +543,71 @@ def test_default_policy_on_card_is_fused_and_equals_stepped(dev, name):
     assert fpeak <= speak
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 8], ids=["default", "chunk8"])
+def test_default_policy_runs_the_fig1_bucket_out_in_one_launch(dev, chunk):
+    """``DispatchPolicy()`` on the card with no deadline runs the B = 16
+    Fig. 1 bucket (1024 points a side, eps 0.01) as one run-out chunk:
+    one ``fused_assignment_phases`` launch and one ``chunk`` read, with
+    k above every lane's phase cap, and every artifact bit-equal to the
+    stepped route's. With ``chunk=8`` the same bucket runs the chunk loop
+    with lane retirement: one launch and one read per chunk, k = 8, the
+    bucket narrower at the end than at the start, no run-out, and the
+    same artifacts."""
+    from repro_torch.core import device as rdev
+    from repro_torch.core.api import DispatchPolicy
+    from repro_torch.core.costs import build_cost_matrix
+    from repro_torch.core.pushrelabel import _max_phases
+    from repro_torch.obs import tracing
+
+    rng = np.random.default_rng(33)
+    b, n, eps = 16, 1024, 0.01
+    x = rng.uniform(size=(b, n, 2)).astype(np.float32)
+    y = rng.uniform(size=(b, n, 2)).astype(np.float32)
+    inputs = {"c": build_cost_matrix(x, y, "euclidean", device=dev)}
+    want = tuple(a for a in ASSIGNMENT.artifacts if a != "stats")
+    solve(ASSIGNMENT, inputs, eps, DispatchPolicy(), device=dev)  # builds
+
+    def run(policy):
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        rdev.reset_sync_counts()
+        tracing.clear()
+        tracing.record(True)
+        try:
+            sol = solve(ASSIGNMENT, inputs, eps, policy, want=want,
+                        device=dev)
+            torch.cuda.synchronize(dev)
+            launches = ops.launches["fused_assignment_phases"]
+            reads = rdev.sync_counts["chunk"]
+            arts = _host_artifacts(sol, ASSIGNMENT)
+            (root,) = [s for s in tracing.recorded() if s["name"] == "solve"]
+            chunks = [s for s in tracing.recorded()
+                      if s["name"] == "driver.chunk"]
+        finally:
+            tracing.record(None)
+            tracing.clear()
+        return arts, root, chunks, launches, reads
+
+    stepped, _, _, _, _ = run(DispatchPolicy(fused=False))
+    fused, root, chunks, launches, reads = run(DispatchPolicy(chunk=chunk))
+    assert root["route"] == "fused"
+    if chunk is None:
+        assert launches == 1 and reads == 1
+        assert root["runouts"] == root["chunks"] == 1
+        (span,) = chunks
+        assert span["live"] == 0 and span["k"] == _max_phases(eps, n) + 1
+    else:
+        assert launches == reads == root["chunks"] == len(chunks) > 1
+        assert root.get("runouts", 0) == 0
+        assert all(s["k"] == chunk for s in chunks)
+        assert chunks[0]["bucket"] == b and chunks[-1]["bucket"] < b
+        assert chunks[-1]["live"] == 0
+    for art in want:
+        for a, s in zip(fused[art], stepped[art]):
+            np.testing.assert_array_equal(a, s, err_msg=art)
+
+
 def _sinkhorn_row_inputs(dev, b, m, n, seed):
     """Per-lane reg from eps in {0.3, 0.1, 0.05, 0.03}, ragged valid blocks
     (cost 0 and zero mass outside), the last lane with zero mass."""

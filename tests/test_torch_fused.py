@@ -280,11 +280,21 @@ def test_fused_variant_mapping():
 
 
 def test_fused_lockstep_k_is_above_every_cap():
+    """The fused specs' lockstep runs the driver's run-out chunk: k one
+    above every lane's phase cap (``compaction.chunk_for``)."""
+    from repro_torch.core.compaction import chunk_for
+
     eps = np.array([0.1, 0.05])
-    assert tproblem.FUSED_ASSIGNMENT._lockstep_k(eps, 30) == \
-        max(_max_phases(e, 30) for e in eps) + 1
-    assert tproblem.FUSED_OT._lockstep_k(eps, 30) == \
-        max(ot_phase_cap(e) for e in eps) + 1
+    rng = np.random.default_rng(0)
+    c = rng.uniform(size=(2, 30, 30)).astype(np.float32)
+    w = np.full((2, 30), 1.0 / 30, np.float32)
+    for spec, inputs, cap in (
+            (tproblem.FUSED_ASSIGNMENT, {"c": c},
+             lambda e: _max_phases(e, 30)),
+            (tproblem.FUSED_OT, {"c": c, "nu": w, "mu": w}, ot_phase_cap)):
+        p = spec.prepare(spec.canonicalize(inputs, "cpu"), eps)
+        assert chunk_for(spec, None, None, p.phase_cap) == (
+            max(cap(e) for e in eps) + 1, True)
 
 
 def test_plain_fused_leaves_inputs_unchanged():
