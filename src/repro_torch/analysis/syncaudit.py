@@ -9,9 +9,10 @@ jax.device_get(...)``). The reference once paid a second hidden sync
 per chunk fetching ``state.phases`` on its own; this audit pins the
 contract so it cannot come back.
 
-The scan parses the driver module, finds the audited loop functions
-(``compaction._drive``, ``distributed._drive_distributed``), and flags
-every host-transfer marker inside a ``for`` / ``while`` body:
+The scan parses the driver module, finds the audited loop function
+(``compaction._drive``, the one chunk loop: the mesh's batch placement
+and lockstep run through it too), and flags every host-transfer marker
+inside a ``for`` / ``while`` body:
 
   * ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``;
   * ``np.asarray(...)`` / ``np.array(...)``;
@@ -23,7 +24,10 @@ Whitelisted: a ``host_numpy("chunk", ...)`` whose result is bound to
 ``both``, the one sanctioned read. Host -> device copies
 (``torch.as_tensor``, ``.to(device)``) stay legal. The sanitizer's
 reads (``checked.py``, kind "debug") live inside the wrapped chunk
-function, outside these loops.
+function, outside this loop. So do the runner's methods
+(``compaction.OneDevice``, ``distributed._MeshRunner``), which the loop
+calls and which read nothing back: the chunk's stacked result comes back
+to the loop as a device tensor.
 """
 from __future__ import annotations
 
@@ -132,11 +136,9 @@ def audit_targets(targets: Sequence[SyncTarget]) -> List[Finding]:
 
 
 def default_targets() -> List[SyncTarget]:
-    from ..core import compaction, distributed
+    from ..core import compaction
 
     return [
         SyncTarget(path=compaction.__file__, func="_drive",
                    label="core.compaction._drive"),
-        SyncTarget(path=distributed.__file__, func="_drive_distributed",
-                   label="core.distributed._drive_distributed"),
     ]

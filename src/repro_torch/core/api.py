@@ -1,18 +1,20 @@
 """The ``solve()`` front door: one entry point for every dispatch path.
 
 Port of ``repro.core.api``. ``solve(spec, instances, eps, policy)`` routes
-a ragged list of instances or one pre-batched bucket through the driver
-the :class:`DispatchPolicy` selects:
+a ragged list of instances or one pre-batched bucket through the one
+compacting driver (``core/compaction.py``) as the :class:`DispatchPolicy`
+selects:
 
-  * ``lockstep``  every lane of a bucket runs until it terminates, in one
-                  chunk;
-  * ``compact``   the convergence-compacting chunked-phase driver
-                  (``core/compaction.py``), per-instance eps supported;
-  * ``mesh``      the mesh-distributed compacting driver
-                  (``core/distributed.py``) over the devices of a
-                  ``launch.mesh.Mesh``, with ``placement`` choosing
-                  batch-axis sharding or per-instance (row, col) block
-                  sharding ("auto" applies ``choose_placement``).
+  * ``lockstep``  the driver's run-out: every lane of a bucket runs until
+                  it terminates, in one chunk;
+  * ``compact``   the convergence-compacting chunked-phase loop,
+                  per-instance eps supported;
+  * ``mesh``      over the devices of a ``launch.mesh.Mesh``
+                  (``core/distributed.py``): batch placement is the same
+                  loop with the mesh's runner, which splits the batch
+                  axis; matrix placement solves each instance (row, col)
+                  block-sharded. ``placement`` chooses ("auto" applies
+                  ``choose_placement``).
 
 Results are identical across lockstep, compact and mesh/batch, lane for
 lane; mesh/matrix has the same integer state, and floats equal up to
@@ -302,15 +304,15 @@ def _dispatch_one(spec, inputs: Dict[str, Any], eps, *, sizes=None,
         eps_u = np.unique(np.asarray(eps, np.float64))
         if eps_u.size > 1:
             raise ValueError("per-instance eps requires compact=True")
-        r, state = spec.solve_lockstep(
-            inputs, float(eps_u[0]), sizes=sizes,
+        r, st = solve_compacting(
+            spec, inputs, float(eps_u[0]), sizes=sizes,
             guaranteed=policy.guaranteed, keep_state=keep_state,
-            device=device, **prep_kw)
+            device=device, lockstep=True, **prep_kw)
         if keep_state:
             b = int(spec.batch_shape(inputs)[0])
-            st = CompactionStats(batch=b, dispatched_batch=b, chunk=0,
-                                 dispatches=1, final_state=state)
-            return r, st
+            return r, CompactionStats(batch=b, dispatched_batch=b, chunk=0,
+                                      dispatches=1,
+                                      final_state=st.final_state)
         return r, None
     # None goes through: the driver resolves it per bucket (chunk_for)
     k = None if policy.chunk is None else int(policy.chunk)

@@ -6,9 +6,10 @@ rows get zero mass or leave the free set, padded columns get zero capacity
 (OT) or ``PAD_COST`` (assignment), so a padded instance walks the same
 admissible subgraph with the same hash keys as its unpadded original.
 
-The lockstep solve runs every lane of one bucket until each has
-terminated, in a single chunk of k = max phase cap + 1 phases; per lane
-the trajectory is the compacting driver's and the unbatched solver's.
+The lockstep solve is the compacting driver asked for its run-out
+(``compaction.solve_compacting(..., lockstep=True)``): every lane of one
+bucket runs until it has terminated, in a single chunk of k = max phase
+cap + 1 phases; per lane the trajectory is the unbatched solver's.
 """
 from __future__ import annotations
 
@@ -18,9 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..obs import tracing as _tracing
-from .compaction import _route
-from .problem import ASSIGNMENT, OT, pow2_at_least, tree_map
+from .compaction import solve_compacting
+from .problem import ASSIGNMENT, OT, pow2_at_least
 
 DEFAULT_BUCKETS: tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -76,29 +76,6 @@ def take_lanes(t: torch.Tensor, idx) -> torch.Tensor:
     return t.index_select(0, torch.as_tensor(idx, device=t.device))
 
 
-def solve_lockstep(spec, inputs, eps: float, *, sizes=None,
-                   guaranteed: bool = False, keep_state: bool = False,
-                   device=None, **prep_kw):
-    """Solve one (B, M, N) bucket under one scalar ``eps`` on ``device``
-    (None: CUDA), every lane to termination in one chunk. Returns
-    ``(result, state or None)``, both trimmed to the B real lanes."""
-    inputs = spec.canonicalize(inputs, device)
-    b = spec.batch_shape(inputs)[0]
-    with _tracing.span("solve.prepare"):
-        p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
-                         **prep_kw)
-    ops = p.ops
-    with _tracing.span("solve.prologue"):
-        data, ctx = spec.prologue(ops)
-        ctx = {**ctx, **{k: ops[k] for k in spec.ctx_ops}}
-        state = spec.init_state(data, ctx)
-    _tracing.note("route", _route(spec))
-    state = spec.run_phases(data, state, int(p.phase_cap.max(initial=0)) + 1)
-    with _tracing.span("solve.epilogue"):
-        r = spec.trim(spec.epilogue(ctx, state), b)
-        return r, (tree_map(lambda a: a[:b], state) if keep_state else None)
-
-
 def solve_assignment_batched(c, eps: float, *, sizes=None,
                              guaranteed: bool = False,
                              keep_state: bool = False, device=None):
@@ -106,10 +83,10 @@ def solve_assignment_batched(c, eps: float, *, sizes=None,
     lockstep on ``device`` (None: CUDA). ``sizes`` (B, 2) gives the true
     shapes. Returns the result, or ``(result, state)`` with
     ``keep_state``."""
-    r, st = solve_lockstep(ASSIGNMENT, {"c": c}, eps, sizes=sizes,
-                           guaranteed=guaranteed, keep_state=keep_state,
-                           device=device)
-    return (r, st) if keep_state else r
+    r, st = solve_compacting(ASSIGNMENT, {"c": c}, eps, sizes=sizes,
+                             guaranteed=guaranteed, keep_state=keep_state,
+                             device=device, lockstep=True)
+    return (r, st.final_state) if keep_state else r
 
 
 def solve_ot_batched(c, nu, mu, eps: float, *, sizes=None, theta=None,
@@ -117,9 +94,9 @@ def solve_ot_batched(c, nu, mu, eps: float, *, sizes=None, theta=None,
     """B OT instances stacked as (B, M, N) costs and (B, M) / (B, N)
     masses, lockstep on ``device`` (None: CUDA). Returns an OTResult with
     leading batch axes."""
-    return solve_lockstep(OT, {"c": c, "nu": nu, "mu": mu}, eps,
-                          sizes=sizes, guaranteed=guaranteed,
-                          theta=theta, device=device)[0]
+    return solve_compacting(OT, {"c": c, "nu": nu, "mu": mu}, eps,
+                            sizes=sizes, guaranteed=guaranteed, theta=theta,
+                            device=device, lockstep=True)[0]
 
 
 def _ragged_policy(compact: bool, chunk, mesh, buckets, guaranteed: bool):
@@ -141,7 +118,7 @@ def solve_ot_ragged(instances, eps, *,
     the compacting driver (``eps`` may then be per instance);
     ``compact=False`` runs lockstep, sub-grouped by eps. ``mesh`` (a
     ``launch.mesh.Mesh``, with ``compact=True``) runs every bucket on the
-    mesh-distributed driver, whose first device then replaces
+    compacting driver over the mesh, whose first device then replaces
     ``device``. A thin wrapper over ``core/api.solve(OT, ...)``."""
     from .api import solve
 

@@ -1,5 +1,5 @@
 """Convergence-compacting chunked-phase batch driver, generic over a
-ProblemSpec (``core/problem.py``).
+ProblemSpec (``core/problem.py``): the port's one chunk loop.
 
 Port of ``repro.core.compaction``. A lockstep batch burns phases on every
 lane until the slowest converges; this driver retires converged lanes:
@@ -14,8 +14,16 @@ lane until the slowest converges; this driver retires converged lanes:
   4. when every lane has terminated, run the epilogue once over the
      full-B buffer.
 
-Per-lane trajectories equal the lockstep path's and the unbatched
-solver's: lanes never interact, and the hash keys depend only on the
+Every solve of a bucket runs through :func:`solve_compacting` and its
+loop :func:`_drive`. Where the lanes live is the runner's business: one
+device (:class:`OneDevice`), or a mesh's devices
+(``core.distributed``'s batch placement, whose runner splits each chunk
+over them). ``mode="lockstep"`` is the same loop asked for one chunk
+above every lane's phase cap (``lockstep=True``), so no lane retires
+early.
+
+Per-lane trajectories equal the unbatched solver's for any k and any
+runner: lanes never interact, and the hash keys depend only on the
 within-instance (row, col, phase, round). ``eps`` may be per instance.
 
 ``deadline`` (an absolute time on ``repro_torch.obs.now``, the clock the
@@ -104,15 +112,62 @@ def _flush(buf, cur_s, idx: np.ndarray):
     return _scatter(buf, cur_s, torch.as_tensor(idx, device=cur_s[0].device))
 
 
-def _drive(data, state, run_fn, conv_fn, max_chunks: int,
-           stats: CompactionStats, deadline: Optional[float] = None,
-           obs=None):
-    """The compacting loop over a per-lane ``data`` dict and a state
-    NamedTuple. ``run_fn(data, state)`` advances every lane by at most
-    ``stats.chunk`` phases; ``conv_fn(data, state)`` gives ((B,) bool
-    converged, (B,) int32 phases). The fetch of both, stacked, is the
-    loop's one device->host read per chunk. Returns the full-size state
-    with every lane terminated (or cut), in original batch order.
+def _chunk(run_fn, conv_fn, data, state):
+    """One chunk over the lanes of ``data`` / ``state``: the new state and
+    the stacked ((b,) converged, (b,) phases) as int32, which the driver
+    reads in its one fetch."""
+    state = run_fn(data, state)
+    conv, ph = conv_fn(data, state)
+    return state, torch.stack([conv.to(torch.int32), ph.to(torch.int32)])
+
+
+class OneDevice:
+    """The runner of :func:`_drive` for a bucket on one device: where the
+    lanes live and how a chunk runs over them. ``core.distributed``'s
+    mesh runner splits them over its devices. ``shards`` is how many
+    shards the next chunk runs on; ``run()`` gives the chunk's stacked
+    (2, bb) read (:func:`_chunk`) on the first device; ``retire(sel)``
+    goes on with the lanes ``sel`` of the state ``state()`` last gave;
+    ``fields()`` is what the runner adds to each chunk's span and event;
+    ``close()`` runs once, also on error."""
+
+    shards = 1
+
+    def stats(self, **kw) -> CompactionStats:
+        return CompactionStats(**kw)
+
+    def load(self, data, state, run_fn, conv_fn, stats) -> None:
+        self.data, self.full = data, state
+        self.run_fn, self.conv_fn = run_fn, conv_fn
+
+    def run(self) -> torch.Tensor:
+        self.full, both = _chunk(self.run_fn, self.conv_fn, self.data,
+                                 self.full)
+        return both
+
+    def state(self):
+        return self.full
+
+    def retire(self, sel: np.ndarray) -> None:
+        sel_t = torch.as_tensor(sel, device=self.full[0].device)
+        self.data = _gather(self.data, sel_t)
+        self.full = _gather(self.full, sel_t)
+
+    def fields(self) -> dict:
+        return {}
+
+    def close(self) -> None:
+        pass
+
+
+def _drive(runner, max_chunks: int, stats: CompactionStats,
+           deadline: Optional[float] = None, obs=None):
+    """The compacting loop over the bucket ``runner`` holds
+    (:class:`OneDevice`, or the mesh's runner). Each chunk advances
+    every lane by at most ``stats.chunk`` phases; the fetch of its
+    stacked (converged, phases) is the loop's one device->host read per
+    chunk. Returns the full-size state with every lane terminated (or
+    cut), in original batch order, on the runner's first device.
 
     ``deadline`` is an absolute ``_now()`` instant: after each chunk the
     host clock (read after the chunk's fetch, which already waited on the
@@ -126,43 +181,44 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
     budget stops the loop. Each dispatch, its read and its retirement run
     under a ``driver.chunk`` span (``obs.tracing``).
 
-    Each lane's phase count at its last read is its final one (a
-    converged lane takes no more phases), so the loop also sets
-    ``stats.phases_needed`` / ``lockstep_slot_phases`` from its reads."""
+    ``slot_phases`` counts per-shard lockstep slots: each shard runs its
+    lanes for its own max phase delta. Each lane's phase count at its
+    last read is its final one (a converged lane takes no more phases),
+    so the loop also sets ``stats.phases_needed`` /
+    ``lockstep_slot_phases`` from its reads."""
     idx = np.arange(stats.dispatched_batch)
     # the result buffer is born at the first flush, where idx is still the
     # identity, so it never aliases a state a later chunk updates
     buf = None
-    cur_d, cur_s = data, state
     ph_prev = np.zeros((stats.dispatched_batch,), np.int64)
     ph_last = np.zeros((stats.dispatched_batch,), np.int64)
     for _ in range(max_chunks):
         with _tracing.span("driver.chunk") as sp:
             t_chunk = _now()
-            cur_s = run_fn(cur_d, cur_s)
+            shards = runner.shards
+            both = host_numpy("chunk", runner.run())
             stats.dispatches += 1
-            conv_t, ph_t = conv_fn(cur_d, cur_s)
-            both = host_numpy("chunk", torch.stack([conv_t.to(torch.int32),
-                                                    ph_t.to(torch.int32)]))
             conv, ph = both[0].astype(bool), both[1].astype(np.int64)
             t_chunk = _now() - t_chunk
             bb = int(conv.shape[0])
-            # the chunk runs every lane for the max phase delta
-            dph = int((ph - ph_prev).max(initial=0))
-            stats.slot_phases += bb * dph
+            per_shard = (ph - ph_prev).reshape(shards, bb // shards)
+            stats.slot_phases += int(per_shard.max(axis=1).sum()
+                                     * (bb // shards))
+            dph = int(per_shard.max(initial=0))
             ph_prev = ph
             ph_last[idx] = ph
             live = int((~conv).sum())
             stats.occupancy.append((bb, live))
+            extra = runner.fields()
             if sp is not None:
                 sp.attrs.update(bucket=bb, live=live, phases=dph,
-                                k=stats.chunk)
+                                k=stats.chunk, **extra)
                 _tracing.add("chunks")
             if obs is not None:
                 obs.event("chunk", bucket=bb, live=live, chunk_s=t_chunk,
-                          phases=dph)
+                          phases=dph, **extra)
             if live == 0:
-                buf = _flush(buf, cur_s, idx)
+                buf = _flush(buf, runner.state(), idx)
                 break
             if deadline is not None and _now() + t_chunk >= deadline:
                 # another chunk (estimated by the one that just ran) would
@@ -177,26 +233,24 @@ def _drive(data, state, run_fn, conv_fn, max_chunks: int,
                 stats.unconverged = un
                 if obs is not None:
                     obs.event("deadline-cut", bucket=bb, live=live)
-                buf = _flush(buf, cur_s, idx)
+                buf = _flush(buf, runner.state(), idx)
                 break
             nb = pow2_at_least(live)
             if nb <= bb // 2:
                 # retire: flush all current lanes to the result buffer,
-                # then gather the survivors (padded with one converged
-                # lane, whose predicate is already false) into the next
+                # then go on with the survivors (padded with one converged
+                # lane, whose predicate is already false) in the next
                 # bucket
-                buf = _flush(buf, cur_s, idx)
+                buf = _flush(buf, runner.state(), idx)
                 surv = np.flatnonzero(~conv)
                 fill = np.flatnonzero(conv)[:1]
                 sel = np.concatenate([surv, np.repeat(fill, nb - live)])
-                sel_t = torch.as_tensor(sel, device=cur_s[0].device)
-                cur_d = _gather(cur_d, sel_t)
-                cur_s = _gather(cur_s, sel_t)
+                runner.retire(sel)
                 idx = idx[sel]
                 ph_prev = ph[sel]
     else:
         # phase caps bound every lane, so the loop always breaks
-        buf = _flush(buf, cur_s, idx)
+        buf = _flush(buf, runner.state(), idx)
     record_phases(stats, ph_last)
     return buf
 
@@ -212,7 +266,7 @@ def record_phases(stats, phases: np.ndarray) -> None:
 
 def spec_fns(spec, k: int):
     """``(prologue, init, chunk, conv, epilogue)``: the spec's batched
-    functions as the drivers call them. ``chunk(data, state)`` runs at
+    functions as the driver calls them. ``chunk(data, state)`` runs at
     most ``k`` phases; ``conv(data, state)`` gives ((B,) converged, (B,)
     phases), which the driver stacks into its one read per chunk.
     ``analysis.checked.checked_spec_fns`` gives the same family with the
@@ -223,19 +277,9 @@ def spec_fns(spec, k: int):
             spec.epilogue)
 
 
-def _route(spec) -> str:
-    """The ``route`` a driver sets on the ``solve`` span for ``spec``'s
-    chunks."""
-    return "fused" if getattr(spec, "fused", False) else "stepped"
-
-
-def max_chunk_dispatches(phase_cap: np.ndarray, k: int) -> int:
-    """Upper bound on k-phase dispatches (phase caps bound every lane)."""
-    return -(-int(phase_cap.max(initial=1)) // max(k, 1)) + 2
-
-
 def chunk_for(spec, k: Optional[int], deadline: Optional[float],
-              phase_cap: Optional[np.ndarray] = None) -> Tuple[int, bool]:
+              phase_cap: Optional[np.ndarray] = None,
+              lockstep: bool = False) -> Tuple[int, bool]:
     """``(k, runout)``: the phases a chunk of ``spec``'s bucket runs, and
     whether the driver chose to run the bucket out in that one chunk.
     An explicit ``k`` is used as given. None is the driver's choice: one
@@ -243,15 +287,17 @@ def chunk_for(spec, k: Optional[int], deadline: Optional[float],
     the chunk is one fused push-relabel launch that stops itself lane by
     lane, no ``deadline`` is set and the debug checks are off (their
     checked chunk runs stepped); so the bucket runs to termination in
-    one launch and the driver reads once. Otherwise, and with no
+    one launch and the driver reads once. ``lockstep`` asks for that
+    run-out for any spec (``mode="lockstep"``). Otherwise, and with no
     ``phase_cap`` (an empty batch, matrix placement), ``DEFAULT_CHUNK``:
     a deadline cuts between chunks, and a stepped chunk reads a flag
     every round anyway. Results are the same for any k."""
     if k is not None:
         return int(k), False
-    if (phase_cap is not None and deadline is None
-            and not debug_checks_enabled()
-            and isinstance(spec, (FusedAssignmentSpec, FusedOTSpec))):
+    if phase_cap is not None and (
+            lockstep or (deadline is None and not debug_checks_enabled()
+                         and isinstance(spec, (FusedAssignmentSpec,
+                                               FusedOTSpec)))):
         return int(phase_cap.max(initial=0)) + 1, True
     return DEFAULT_CHUNK, False
 
@@ -260,7 +306,8 @@ def solve_compacting(spec, inputs, eps, *, sizes=None,
                      k: Optional[int] = None,
                      guaranteed: bool = False, keep_state: bool = False,
                      deadline: Optional[float] = None, obs=None,
-                     device=None, **prep_kw):
+                     device=None, lockstep: bool = False, runner=None,
+                     **prep_kw):
     """Solve a (B, M, N) batch of ``spec`` instances with convergence
     compaction.
 
@@ -280,23 +327,31 @@ def solve_compacting(spec, inputs, eps, *, sizes=None,
         answers (``stats.deadline_hit`` / ``unconverged``).
       obs: see :func:`_drive`.
       device: where the solve runs; None means CUDA (raising without it).
-      prep_kw: spec-specific prep options (OT: ``theta``).
+      lockstep: with ``k`` None, run every lane to termination in one
+        chunk whatever the spec (``api``'s ``mode="lockstep"``).
+      runner: where the lanes run (:class:`OneDevice` when None;
+        ``core.distributed`` passes the mesh's). The sanitizer's checked
+        functions run a bucket that starts on one shard.
+      prep_kw: spec-specific prep options (OT: ``theta``; the mesh:
+        ``min_batch``).
 
-    Returns ``(result, CompactionStats)``.
+    Returns ``(result, stats)``: ``CompactionStats``, or what the
+    runner's ``stats`` makes.
     """
+    runner = runner or OneDevice()
     inputs = spec.canonicalize(inputs, device)
     b, m, n = spec.batch_shape(inputs)
     if b == 0:
         return (spec.empty_result(m, n, inputs["c"].device),
-                CompactionStats(batch=0, dispatched_batch=0,
-                                chunk=chunk_for(spec, k, deadline)[0]))
+                runner.stats(batch=0, dispatched_batch=0,
+                             chunk=chunk_for(spec, k, deadline)[0]))
     with _tracing.span("solve.prepare"):
         p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
                          **prep_kw)
-    k, runout = chunk_for(spec, k, deadline, p.phase_cap)
+    k, runout = chunk_for(spec, k, deadline, p.phase_cap, lockstep)
     if runout:
         _tracing.add("runouts")
-    if debug_checks_enabled():
+    if debug_checks_enabled() and runner.shards == 1:
         # the sanitizer: checked prologue, chunk and epilogue, on the
         # stepped route (analysis/checked.py); one more read a chunk
         from ..analysis.checked import checked_spec_fns
@@ -304,16 +359,22 @@ def solve_compacting(spec, inputs, eps, *, sizes=None,
         _tracing.note("route", "stepped")
     else:
         prologue, init, chunk, conv, epilogue = spec_fns(spec, k)
-        _tracing.note("route", _route(spec))
+        _tracing.note("route", "fused" if getattr(spec, "fused", False)
+                      else "stepped")
     ops = p.ops
     with _tracing.span("solve.prologue"):
         data, ctx = prologue(ops)
         ctx = {**ctx, **{kk: ops[kk] for kk in spec.ctx_ops}}
         state0 = init(data, ctx)
-    stats = CompactionStats(batch=b, dispatched_batch=p.bp, chunk=k)
-    final = _drive(data, state0, chunk, conv,
-                   max_chunk_dispatches(p.phase_cap, k), stats,
-                   deadline=deadline, obs=obs)
+    stats = runner.stats(batch=b, dispatched_batch=p.bp, chunk=k)
+    # phase caps bound every lane, so this many chunks end every bucket
+    max_chunks = -(-int(p.phase_cap.max(initial=1)) // max(k, 1)) + 2
+    try:
+        runner.load(data, state0, chunk, conv, stats)
+        final = _drive(runner, max_chunks, stats, deadline=deadline,
+                       obs=obs)
+    finally:
+        runner.close()
     with _tracing.span("solve.epilogue"):
         r = epilogue(ctx, final)
         if keep_state:

@@ -1,5 +1,5 @@
-"""Mesh-distributed convergence-compacting batch dispatch, generic over a
-ProblemSpec (``core/problem.py``).
+"""The mesh: the compacting driver's runner for batch placement, and
+matrix placement, generic over a ProblemSpec (``core/problem.py``).
 
 Port of ``repro.core.distributed``. The paper's bound is parallel time
 O(log n / eps^2); the reference carries it across devices in two
@@ -32,35 +32,32 @@ after its own set-up and re-bucketing work, so a shard's stream never
 reads a buffer the driver is still writing, and no buffer is reused
 while another stream reads it.
 
-Driver semantics are the reference's:
+Batch placement is the one compacting driver (``compaction._drive``,
+through ``solve_compacting``: one read a chunk for the whole mesh, the
+same retirement and deadline cut) with :class:`_MeshRunner` as its
+runner. What the mesh adds is the reference's:
 
   * the dispatched batch starts at ``max(pow2(B), D)``, so the batch axis
-    divides among the D shards;
-  * ONE converged-mask read per chunk for the whole mesh (``"chunk"`` in
-    ``core.device.sync_counts``, +1 a chunk);
-  * once occupancy has halved, all lanes are flushed to the full-size
-    result buffer and the survivors re-bucketed into the next power of
-    two, split again over the mesh;
+    divides among the D shards; each re-bucketing splits it again;
   * when the next bucket would drop below the device count
     (``pow2(live) < D``), the survivors collapse onto the first device
-    (``collapsed_at``) and the descent goes on as the single-device
-    driver's;
-  * a batch below the mesh floor from the start runs the single-device
-    driver;
+    (``collapsed_at``) and the descent goes on there;
+  * a batch below the mesh floor from the start runs on the first
+    device alone;
   * ``slot_phases`` counts per-device lockstep slots (each shard runs its
     lanes for its local max phase delta);
-  * ``deadline`` cuts the chunk loop with best-so-far semantics;
   * ``obs`` gets one ``"chunk"`` event per dispatch carrying ``devices``.
 
 Under batch placement per-lane results are bit-equal to the single-device
-compacting driver (lanes never interact; the hash keys depend only on the
+solve (lanes never interact; the hash keys depend only on the
 within-instance (row, col, phase, round)). Under matrix placement each
 instance solves at its own mesh-divisible padded shape: the integer state
 is bit-equal, and the float epilogue may differ by reassociation.
 
-The sanitizer (``repro_torch.analysis.checked``) applies to the
-single-device compacting driver only, as in the reference: a mesh
-dispatch stays plain under ``REPRO_DEBUG_CHECKS=1``.
+The sanitizer (``repro_torch.analysis.checked``) applies to a bucket
+that starts on one device, as in the reference: a sharded mesh solve
+stays plain under ``REPRO_DEBUG_CHECKS=1``, and a solve below the mesh
+floor is checked.
 """
 from __future__ import annotations
 
@@ -73,18 +70,14 @@ import torch
 
 from ..launch.mesh import Mesh, make_mesh
 from ..obs import tracing as _tracing
-from ..obs.metrics import now as _now
 from .compaction import (
     DEFAULT_CHUNK,
     CompactionStats,
-    _flush,
-    _gather,
-    _route,
+    OneDevice,
+    _chunk,
     chunk_for,
-    max_chunk_dispatches,
     record_phases,
     solve_compacting,
-    spec_fns,
 )
 from .device import host_numpy
 from .problem import (
@@ -191,50 +184,6 @@ def _synchronize(devices) -> None:
             torch.cuda.synchronize(d)
 
 
-class _Shards:
-    """One worker thread per shard; each call runs with the shard's
-    device current and its stream, and synchronizes that stream before
-    it returns. ``share_streams``: shards on one device share one
-    stream."""
-
-    def __init__(self, devices, share_streams: bool):
-        self.devices = tuple(devices)
-        streams, by_dev = [], {}
-        for d in self.devices:
-            if d.type != "cuda":
-                streams.append(None)
-            elif share_streams:
-                streams.append(by_dev.setdefault(d, torch.cuda.Stream(d)))
-            else:
-                streams.append(torch.cuda.Stream(d))
-        self.streams = streams
-        self.pool = ThreadPoolExecutor(max_workers=len(self.devices),
-                                       thread_name_prefix="mesh-shard")
-
-    def _run(self, i, fn, item):
-        dev, st = self.devices[i], self.streams[i]
-        if st is None:
-            return fn(item)
-        with torch.cuda.device(dev), torch.cuda.stream(st):
-            out = fn(item)
-            st.synchronize()
-            return out
-
-    def map(self, fn, items) -> list:
-        """``fn`` on every shard's item, all in flight together; joins
-        them all, then raises the first shard's error if any failed."""
-        futs = [self.pool.submit(self._run, i, fn, it)
-                for i, it in enumerate(items)]
-        wait(futs)
-        errors = [f.exception() for f in futs if f.exception() is not None]
-        if errors:
-            raise errors[0]
-        return [f.result() for f in futs]
-
-    def close(self) -> None:
-        self.pool.shutdown(wait=True)
-
-
 def _split(tree, devices, bb: int):
     """Contiguous lane ranges of a ``bb``-lane tree, one per device."""
     per = bb // len(devices)
@@ -248,126 +197,109 @@ def _cat(parts, dev0):
                             for f in range(len(parts[0]))))
 
 
-def _shard_chunk(run_fn, conv_fn, part):
-    """One shard's chunk: its new state and its stacked ((b,) converged,
-    (b,) phases), which the driver gathers into its one read."""
-    d, s = part
-    s = run_fn(d, s)
-    conv, ph = conv_fn(d, s)
-    return s, torch.stack([conv.to(torch.int32), ph.to(torch.int32)])
+class _MeshRunner(OneDevice):
+    """The mesh's runner of ``compaction._drive``: each chunk runs on
+    every shard's contiguous lanes at once, and the driver reads their
+    stacked results in one fetch on the first device. ``below``: the
+    bucket starts under the mesh floor, so the whole solve runs on the
+    first device; a retirement to fewer lanes than shards collapses onto
+    it (``collapsed_at``). On one device it is :class:`OneDevice`."""
 
+    def __init__(self, devices, *, below: bool, share_streams: bool,
+                 batch_axis: str):
+        self.devices = tuple(devices)
+        self.shards = 1 if below else len(self.devices)
+        self.below, self.share_streams = below, share_streams
+        self.batch_axis = batch_axis
+        self.pool = None
 
-def _drive_distributed(data, state, run_fn, conv_fn, max_chunks: int,
-                       stats: DistributedStats, devices, *,
-                       share_streams: bool = False,
-                       deadline: Optional[float] = None, obs=None):
-    """Mesh counterpart of ``compaction._drive``. ``data``/``state`` hold
-    the full bucket on ``devices[0]``; each chunk runs
-    ``run_fn(data, state)`` on every shard's lanes and ``conv_fn`` gives
-    its ((b,) converged, (b,) phases). Returns the full-size state on
-    ``devices[0]`` with every lane terminated (or cut), in original batch
-    order."""
-    d0 = len(devices)
-    dev0 = devices[0]
-    idx = np.arange(stats.dispatched_batch)
-    buf = None
-    cur_d, cur_s = data, state
-    sharded = d0 > 1
-    shards = _Shards(devices, share_streams) if sharded else None
-    parts = None
+    def stats(self, **kw) -> DistributedStats:
+        return DistributedStats(
+            **kw, devices=len(self.devices), batch_axis=self.batch_axis,
+            placement="batch",
+            collapsed_at=(kw["dispatched_batch"] or None) if self.below
+            else None)
 
-    def chunk(part):
-        return _shard_chunk(run_fn, conv_fn, part)
+    def load(self, data, state, run_fn, conv_fn, stats) -> None:
+        super().load(data, state, run_fn, conv_fn, stats)
+        self.driver_stats = stats
+        if self.shards == 1:
+            return
+        streams, by_dev = [], {}
+        for d in self.devices:
+            if d.type != "cuda":
+                streams.append(None)
+            elif self.share_streams:
+                streams.append(by_dev.setdefault(d, torch.cuda.Stream(d)))
+            else:
+                streams.append(torch.cuda.Stream(d))
+        self.streams = streams
+        self.pool = ThreadPoolExecutor(max_workers=len(self.devices),
+                                       thread_name_prefix="mesh-shard")
+        self._shard_out()
 
-    def shard_out():
+    def _shard_out(self) -> None:
+        bb = len(self.full[0])
+        self.parts = list(zip(_split(self.data, self.devices, bb),
+                              _split(self.full, self.devices, bb)))
         # the driver's set-up of these lanes must be done before the
         # shards' streams read them
-        out = list(zip(_split(cur_d, devices, len(idx)),
-                       _split(cur_s, devices, len(idx))))
-        _synchronize(devices)
-        return out
+        _synchronize(self.devices)
 
-    def full_state():
-        return _cat([s for _, s in parts], dev0) if sharded else cur_s
+    def _shard_chunk(self, i: int):
+        """Shard ``i``'s chunk, with its device current and its stream,
+        which it synchronizes before it returns."""
+        (data, state), st = self.parts[i], self.streams[i]
+        if st is None:
+            return _chunk(self.run_fn, self.conv_fn, data, state)
+        with torch.cuda.device(self.devices[i]), torch.cuda.stream(st):
+            out = _chunk(self.run_fn, self.conv_fn, data, state)
+            st.synchronize()
+            return out
 
-    try:
-        if sharded:
-            parts = shard_out()
-        ph_prev = np.zeros((stats.dispatched_batch,), np.int64)
-        ph_last = np.zeros((stats.dispatched_batch,), np.int64)
-        for _ in range(max_chunks):
-            with _tracing.span("driver.chunk") as sp:
-                t_chunk = _now()
-                if sharded:
-                    outs = shards.map(chunk, parts)
-                    parts = [(d, s) for (d, _), (s, _) in zip(parts, outs)]
-                    stacked = torch.cat([o.to(dev0) for _, o in outs], dim=1)
-                else:
-                    cur_s, stacked = chunk((cur_d, cur_s))
-                stats.dispatches += 1
-                both = host_numpy("chunk", stacked)
-                conv, ph = both[0].astype(bool), both[1].astype(np.int64)
-                t_chunk = _now() - t_chunk
-                bb = int(conv.shape[0])
-                d_now = d0 if sharded else 1
-                stats.devices_per_dispatch.append(d_now)
-                per_dev = (ph - ph_prev).reshape(d_now, bb // d_now)
-                stats.slot_phases += int(
-                    (per_dev.max(axis=1) * (bb // d_now)).sum())
-                ph_prev = ph
-                ph_last[idx] = ph
-                live = int((~conv).sum())
-                stats.occupancy.append((bb, live))
-                dph = int(per_dev.max(initial=0))
-                if sp is not None:
-                    sp.attrs.update(bucket=bb, live=live, phases=dph,
-                                    devices=d_now, k=stats.chunk)
-                    _tracing.add("chunks")
-                if obs is not None:
-                    obs.event("chunk", bucket=bb, live=live,
-                              chunk_s=t_chunk, phases=dph, devices=d_now)
-                if live == 0:
-                    buf = _flush(buf, full_state(), idx)
-                    break
-                if deadline is not None and _now() + t_chunk >= deadline:
-                    stats.deadline_hit = True
-                    un = np.zeros((stats.dispatched_batch,), bool)
-                    un[idx[~conv]] = True
-                    stats.unconverged = un
-                    if obs is not None:
-                        obs.event("deadline-cut", bucket=bb, live=live)
-                    buf = _flush(buf, full_state(), idx)
-                    break
-                nb = pow2_at_least(live)
-                if nb <= bb // 2:
-                    cur_s = full_state()
-                    buf = _flush(buf, cur_s, idx)
-                    surv = np.flatnonzero(~conv)
-                    fill = np.flatnonzero(conv)[:1]
-                    sel = np.concatenate([surv, np.repeat(fill, nb - live)])
-                    sel_t = torch.as_tensor(sel, device=dev0)
-                    cur_d = _gather(cur_d, sel_t)
-                    cur_s = _gather(cur_s, sel_t)
-                    idx = idx[sel]
-                    ph_prev = ph[sel]
-                    if sharded and nb < d0:
-                        # below the mesh floor: the survivors go on on the
-                        # first device alone
-                        sharded = False
-                        stats.collapsed_at = nb
-                        _synchronize(devices)
-                    elif sharded:
-                        parts = shard_out()
+    def run(self) -> torch.Tensor:
+        self.driver_stats.devices_per_dispatch.append(self.shards)
+        if self.shards == 1:
+            return super().run()
+        # every shard in flight together; all are joined before the first
+        # shard's error, if any, is raised
+        futs = [self.pool.submit(self._shard_chunk, i)
+                for i in range(self.shards)]
+        wait(futs)
+        errors = [f.exception() for f in futs if f.exception() is not None]
+        if errors:
+            raise errors[0]
+        outs = [f.result() for f in futs]
+        self.parts = [(d, s) for (d, _), (s, _) in zip(self.parts, outs)]
+        return torch.cat([o.to(self.devices[0]) for _, o in outs], dim=1)
+
+    def state(self):
+        if self.shards > 1:
+            self.full = _cat([s for _, s in self.parts], self.devices[0])
+        return self.full
+
+    def retire(self, sel: np.ndarray) -> None:
+        super().retire(sel)
+        if self.shards == 1:
+            return
+        if len(sel) < self.shards:
+            # below the mesh floor: the survivors go on on the first
+            # device alone
+            self.shards = 1
+            self.driver_stats.collapsed_at = len(sel)
+            _synchronize(self.devices)
         else:
-            buf = _flush(buf, full_state(), idx)
-        record_phases(stats, ph_last)
-    finally:
-        if shards is not None:
-            shards.close()
+            self._shard_out()
+
+    def fields(self) -> dict:
+        return {"devices": self.shards}
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
             # no buffer of a shard's stream is reused while the driver's
             # stream may still read it
-            _synchronize(devices)
-    return buf
+            _synchronize(self.devices)
 
 
 def _resolve_mesh(mesh, batch_axis):
@@ -389,12 +321,14 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
                batch_axis: str = "data", placement: str = "auto",
                keep_state: bool = False, deadline: Optional[float] = None,
                obs=None, device=None, **prep_kw):
-    """Mesh-distributed counterpart of ``compaction.solve_compacting``:
-    same contract (spec + batched input dict, scalar or (B,) eps), same
-    per-instance results, with the batch axis split across ``mesh``
-    (``launch.mesh.make_batch_mesh()`` when None). The mesh decides the
-    devices: inputs move to its first device, where the result comes
-    back; a ``device`` that is not that device raises.
+    """A bucket solved over ``mesh`` (``launch.mesh.make_batch_mesh()``
+    when None): the contract of ``compaction.solve_compacting`` (spec +
+    batched input dict, scalar or (B,) eps) and its per-instance
+    results. Batch placement IS ``solve_compacting``, given the mesh's
+    runner (:class:`_MeshRunner`), which splits the batch axis over the
+    mesh's devices. The mesh decides the devices: inputs move to its
+    first device, where the result comes back; a ``device`` that is not
+    that device raises.
 
     ``placement``: "auto" (``choose_placement``), "batch" or "matrix".
     ``keep_state`` keeps the pre-completion integer state on the stats
@@ -403,10 +337,10 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
     raises. ``deadline`` cuts the batch placement's chunk loop; matrix
     placement solves instance by instance with no chunk loop to cut and
     ignores it. ``obs`` gets the driver's per-chunk events (batch
-    placement). ``k`` None: batch placement resolves it as the
-    single-device driver does (``compaction.chunk_for``: a fused spec
-    with no deadline runs each shard to termination in one launch), and
-    matrix placement, which is stepped, takes ``DEFAULT_CHUNK``.
+    placement). ``k`` None: batch placement resolves it as every solve
+    of the driver does (``compaction.chunk_for``: a fused spec with no
+    deadline runs each shard to termination in one launch), and matrix
+    placement, which is stepped, takes ``DEFAULT_CHUNK``.
     Returns ``(result, DistributedStats)``."""
     if placement not in ("auto", "batch", "matrix"):
         raise ValueError(f"unknown placement {placement!r}; expected "
@@ -430,56 +364,15 @@ def solve_mesh(spec, inputs, eps, mesh: Optional[Mesh] = None, *,
         return _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed,
                              chunk_for(spec, k, deadline)[0], batch_axis,
                              **prep_kw)
-    if b == 0 or pow2_at_least(b) < d:
-        # below the mesh floor from the start: single-device dispatch
-        out, cst = solve_compacting(
-            spec, inputs, eps, sizes=sizes, k=k, guaranteed=guaranteed,
-            keep_state=keep_state, deadline=deadline, obs=obs, device=dev0,
-            **prep_kw)
-        return out, _wrap_stats(cst, d, batch_axis,
-                                collapsed_at=cst.dispatched_batch or None)
-    with _tracing.span("solve.prepare"):
-        p = spec.prepare(inputs, eps, sizes=sizes, guaranteed=guaranteed,
-                         min_batch=d, **prep_kw)
-    with _tracing.span("solve.prologue"):
-        data, ctx = spec.prologue(p.ops)
-        ctx = {**ctx, **{kk: p.ops[kk] for kk in spec.ctx_ops}}
-        state0 = spec.init_state(data, ctx)
-    k, runout = chunk_for(spec, k, deadline, p.phase_cap)
-    if runout:
-        _tracing.add("runouts")
-    stats = DistributedStats(batch=b, dispatched_batch=p.bp, chunk=k,
-                             devices=d, batch_axis=batch_axis,
-                             placement="batch")
-    _, _, run_fn, conv_fn, _ = spec_fns(spec, k)
-    _tracing.note("route", _route(spec))
-    final = _drive_distributed(
-        data, state0, run_fn, conv_fn,
-        max_chunk_dispatches(p.phase_cap, k), stats, devices,
-        share_streams=bool(getattr(spec, "fused", False)),
-        deadline=deadline, obs=obs)
-    with _tracing.span("solve.epilogue"):
-        r = spec.epilogue(ctx, final)
-        if keep_state:
-            stats.final_state = tree_map(lambda a: a[:b], final)
-        return spec.trim(r, b), stats
-
-
-def _wrap_stats(cst: CompactionStats, devices: int, batch_axis: str,
-                collapsed_at=None) -> DistributedStats:
-    """A single-device CompactionStats as DistributedStats (the whole
-    solve ran below the mesh floor)."""
-    return DistributedStats(
-        batch=cst.batch, dispatched_batch=cst.dispatched_batch,
-        chunk=cst.chunk, dispatches=cst.dispatches,
-        occupancy=cst.occupancy, slot_phases=cst.slot_phases,
-        phases_needed=cst.phases_needed,
-        lockstep_slot_phases=cst.lockstep_slot_phases,
-        final_state=cst.final_state,
-        deadline_hit=cst.deadline_hit, unconverged=cst.unconverged,
-        devices=devices, batch_axis=batch_axis, placement="batch",
-        collapsed_at=collapsed_at,
-        devices_per_dispatch=[1] * cst.dispatches)
+    # below the mesh floor from the start: the first device alone
+    below = pow2_at_least(b) < d
+    runner = _MeshRunner(devices, below=below,
+                         share_streams=bool(getattr(spec, "fused", False)),
+                         batch_axis=batch_axis)
+    return solve_compacting(
+        spec, inputs, eps, sizes=sizes, k=k, guaranteed=guaranteed,
+        keep_state=keep_state, deadline=deadline, obs=obs, device=dev0,
+        runner=runner, min_batch=1 if below else d, **prep_kw)
 
 
 def _solve_matrix(spec, inputs, eps, mesh, sizes, guaranteed, k,
@@ -540,9 +433,9 @@ def solve_ot_distributed(c, nu, mu, eps, mesh: Optional[Mesh] = None, *,
 
 
 # --------------------------------------------------------------------------
-# repro_torch.analysis registration: the mesh chunk dispatch (what
-# `_drive_distributed` re-issues per bucket while sharded), recorded on a
-# logical CPU mesh whose two devices are the one CPU.
+# repro_torch.analysis registration: the mesh chunk dispatch (what the
+# mesh runner re-issues per bucket while sharded), recorded on a logical
+# CPU mesh whose two devices are the one CPU.
 # --------------------------------------------------------------------------
 
 from ..analysis import registry as _audit  # noqa: E402
@@ -559,8 +452,8 @@ def _trace_mesh_chunk(spec_name: str):
 
     def mesh_chunk(data, state):
         # the shards run in the recording thread: a dispatch mode sees one
-        # thread's ops, and _Shards' workers would escape it
-        outs = [_shard_chunk(chunk, conv, part)
+        # thread's ops, and the runner's workers would escape it
+        outs = [_chunk(chunk, conv, *part)
                 for part in zip(_split(data, devices, bb),
                                 _split(state, devices, bb))]
         return _cat([s for s, _ in outs], devices[0])

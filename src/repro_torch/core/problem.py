@@ -2,9 +2,10 @@
 
 Port of ``repro.core.problem``. Both solvers share one skeleton: scale and
 round the instance to integers, run phases until the free supply drops
-below a termination threshold, then complete and price the result. Each
-driver (lockstep, convergence compaction) is written once against this
-contract and bound to a problem by a spec object:
+below a termination threshold, then complete and price the result. The
+one driver (``core/compaction.py``, whose run-out is lockstep and whose
+runners place a bucket on one device or a mesh) is written once against
+this contract and bound to a problem by a spec object:
 
   ``prepare``     host-side batch prep: padding masks, per-instance
                   eps/theta, the host-float64 termination thresholds
@@ -104,7 +105,7 @@ class ProblemSpec(Protocol):
     stateless."""
     name: str
     # ``ops`` entries the epilogue consumes verbatim (merged into ctx by
-    # the drivers instead of passing through the prologue)
+    # the driver instead of passing through the prologue)
     ctx_ops: Tuple[str, ...]
     # artifacts of the Solution surface, and whether the result already
     # carries the pre-completion state
@@ -125,9 +126,6 @@ class ProblemSpec(Protocol):
     def trim(self, r, b: int): ...
     def instance_shape(self, inst) -> Tuple[int, int]: ...
     def pad_group(self, insts, key) -> Dict[str, Any]: ...
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       device=None, **kw): ...
     def artifact_device(self, name: str, r, state) -> Dict[str, Any]: ...
     def artifact_plan_dense(self, host: Dict[str, np.ndarray], batch: int,
                             shape: Tuple[int, int]) -> np.ndarray: ...
@@ -311,7 +309,7 @@ class AssignmentSpec:
             y_a=r.y_a[:b], phases=r.phases[:b], rounds=r.rounds[:b],
             matched_before_completion=r.matched_before_completion[:b])
 
-    # -- ragged front door / lockstep ----------------------------------
+    # -- ragged front door ---------------------------------------------
 
     def instance_shape(self, inst):
         return tuple(np.shape(inst))
@@ -320,15 +318,6 @@ class AssignmentSpec:
         from .batched import pad_stack
 
         return {"c": pad_stack(list(insts), key)}
-
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       device=None):
-        from .batched import solve_lockstep
-
-        return solve_lockstep(self, inputs, eps, sizes=sizes,
-                              guaranteed=guaranteed, keep_state=keep_state,
-                              device=device)
 
     # -- per-artifact producers ----------------------------------------
 
@@ -444,8 +433,8 @@ class OTSpec:
 
     def prepare(self, inputs, eps, *, sizes=None, guaranteed: bool = False,
                 min_batch: int = 1, theta=None) -> PreparedBatch:
-        """Masks, host-float64 thresholds (shared with the lockstep path
-        through ``_mask_ot_inputs``), phase caps, pow2 batch padding."""
+        """Masks, host-float64 thresholds (``_mask_ot_inputs``), phase
+        caps, pow2 batch padding."""
         c, nu, mu = inputs["c"], inputs["nu"], inputs["mu"]
         b, m, n = c.shape
         m_valid, n_valid = _sizes_arrays(sizes, b, m, n)
@@ -511,7 +500,7 @@ class OTSpec:
     def trim(self, r, b: int):
         return tree_map(lambda a: a[:b], r)
 
-    # -- ragged front door / lockstep ----------------------------------
+    # -- ragged front door ---------------------------------------------
 
     def instance_shape(self, inst):
         return tuple(np.shape(inst[0]))
@@ -523,17 +512,6 @@ class OTSpec:
         return {"c": pad_stack([c for c, _, _ in insts], (mb, nb)),
                 "nu": pad_stack([nu for _, nu, _ in insts], (mb,)),
                 "mu": pad_stack([mu for _, _, mu in insts], (nb,))}
-
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       theta=None, device=None):
-        from .batched import solve_lockstep
-
-        r, _ = solve_lockstep(self, inputs, eps, sizes=sizes,
-                              guaranteed=guaranteed, theta=theta,
-                              device=device)
-        # the OT result already carries its pre-completion state
-        return (r, r.state) if keep_state else (r, None)
 
     # -- per-artifact producers ----------------------------------------
 
@@ -658,13 +636,6 @@ class FusedAssignmentSpec(AssignmentSpec):
             data["c_int"], state, data["threshold"], data["phase_cap"], k,
             m_valid=data["m_valid"])
 
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       device=None):
-        return _fused_lockstep(self, inputs, eps, sizes=sizes,
-                               guaranteed=guaranteed, keep_state=keep_state,
-                               device=device)
-
 
 class FusedOTSpec(OTSpec):
     """OTSpec whose k-phase loop is the fused kernel."""
@@ -676,27 +647,6 @@ class FusedOTSpec(OTSpec):
         return ops.fused_run_ot_phases(
             data["c_int"], state, data["threshold"], data["phase_cap"], k,
             int(m + n + 2))
-
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       theta=None, device=None):
-        return _fused_lockstep(self, inputs, eps, sizes=sizes,
-                               guaranteed=guaranteed, keep_state=keep_state,
-                               device=device, theta=theta)
-
-
-def _fused_lockstep(spec, inputs, eps, *, sizes, guaranteed, keep_state,
-                    device, **prep_kw):
-    """Lockstep for the fused specs: the compacting driver with no
-    deadline and its own choice of chunk, which runs the whole bucket to
-    termination in a single launch (``compaction.chunk_for``), so no
-    compaction fires. Returns ``(result, state or None)``."""
-    from .compaction import solve_compacting
-
-    r, stats = solve_compacting(
-        spec, inputs, eps, sizes=sizes, guaranteed=guaranteed,
-        keep_state=keep_state, device=device, **prep_kw)
-    return r, (stats.final_state if keep_state else None)
 
 
 ASSIGNMENT = AssignmentSpec()

@@ -17,8 +17,8 @@ so every invariant the paper's analysis needs (``core/feasibility.py``)
 holds by construction whatever stage 1 returned.
 
 ``WARM_OT`` is an OTSpec whose ``init_state`` seeds ``y_b`` from the
-extra ``y_b0`` operand; it rides the lockstep and compacting drivers,
-which forward ``**prep_kw``.
+extra ``y_b0`` operand; it rides the compacting driver, lockstep
+included, which forwards ``**prep_kw``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 
 from ..core.compaction import DEFAULT_CHUNK, solve_compacting
 from ..core.problem import OTSpec, PreparedBatch, _pad_lanes, eps_array
-from ..core.transport import init_ot_state, ot_phase_cap
+from ..core.transport import init_ot_state
 from .sinkhorn_spec import SINKHORN
 
 # Columns with no demand never constrain the row dual; stand-in "+inf"
@@ -103,19 +103,6 @@ class _WarmOTSpec(OTSpec):
         # a fresh copy: the phases update y_b in place, and ctx["y_b0"]
         # is kept for the epilogue's ctx
         return st._replace(y_b=ctx["y_b0"].clone())
-
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       theta=None, y_b0=None, device=None):
-        # one compacting dispatch with k above the phase cap: lockstep
-        # semantics without teaching core/batched a warm-start operand
-        b = int(inputs["c"].shape[0])
-        eps_arr = eps_array(eps, b, guaranteed)
-        k_all = max(ot_phase_cap(float(e)) for e in eps_arr) + 1
-        r, stats = solve_compacting(
-            self, inputs, eps, sizes=sizes, k=k_all, guaranteed=guaranteed,
-            keep_state=keep_state, device=device, theta=theta, y_b0=y_b0)
-        return r, (stats.final_state if keep_state else None)
 
     def matrix_instance(self, inputs, i, mi, ni, mp, np_, eps_i, mesh2,
                         row_axis, col_axis, **kw):

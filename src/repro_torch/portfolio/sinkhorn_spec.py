@@ -3,8 +3,8 @@
 Port of ``repro.portfolio.sinkhorn_spec``. The paper compares the
 push-relabel solver against Sinkhorn; this module makes that comparison a
 per-request dispatch choice by wrapping Sinkhorn in the stepped-core
-contract of ``core/problem.py``, so the lockstep and compacting drivers
-run it unchanged.
+contract of ``core/problem.py``, so the compacting driver runs it
+unchanged, lockstep (its run-out) included.
 
 The additive-eps contract comes from Altschuler-Weed-Rigollet
 (arXiv:1705.09634): with reg = eps/(4 log n) and the iterates stopped at
@@ -287,31 +287,6 @@ class SinkhornSpec(OTSpec):
                                 err=zf(0), reg=zf(0))
 
     # trim: OTSpec's slice of every field works on SinkhornOTResult
-
-    # -- lockstep --------------------------------------------------------
-
-    def _lockstep_k(self, eps_arr, mn: int) -> int:
-        _, _, cap = sinkhorn_schedule(eps_arr,
-                                      np.full_like(eps_arr, mn, np.int64),
-                                      np.full_like(eps_arr, mn, np.int64))
-        return int(cap.max(initial=1)) + 1
-
-    def solve_lockstep(self, inputs, eps: float, *, sizes=None,
-                       guaranteed: bool = False, keep_state: bool = False,
-                       max_iters=None, device=None):
-        # one compacting dispatch with k above the iteration cap: lockstep
-        # semantics (no compaction fires), as the fused specs do it; the
-        # phase loop stops at its first check that finds no lane running
-        from ..core.compaction import solve_compacting
-
-        b, m, n = (int(s) for s in inputs["c"].shape)
-        eps_arr = eps_array(eps, b, guaranteed)
-        k_all = (self._lockstep_k(eps_arr, max(m, n))
-                 if max_iters is None else int(max_iters) + 1)
-        r, stats = solve_compacting(
-            self, inputs, eps, sizes=sizes, k=k_all, guaranteed=guaranteed,
-            keep_state=keep_state, device=device, max_iters=max_iters)
-        return r, (stats.final_state if keep_state else None)
 
     # -- per-artifact producers ----------------------------------------
 

@@ -140,9 +140,10 @@ class OTService:
     ``submit()`` queues distance requests; ``run_batch()`` groups them by
     point dimension and mode into shape buckets, pads each bucket, builds
     its costs in one kernel launch and dispatches it through
-    ``core/api.solve`` under one policy (``compact=True``: the compacting
-    driver; ``compact=False``: lockstep; ``mesh=``: the mesh-distributed
-    driver over that ``launch.mesh.Mesh``, on its devices). Point-set
+    ``core/api.solve`` under one policy, into the one compacting driver
+    (``compact=True``: its chunk loop; ``compact=False``: lockstep, its
+    run-out; ``mesh=``: the loop over that ``launch.mesh.Mesh``, on its
+    devices). Point-set
     requests (no masses) run the assignment solver; requests with (nu,
     mu) the general OT solver. ``distance()`` is the one-shot wrapper.
 
@@ -183,7 +184,8 @@ class OTService:
                               else float(admission_tol))
         self.buckets = tuple(buckets) if buckets else B.DEFAULT_BUCKETS
         self.compact = compact
-        # None: the driver's choice per bucket (compaction.chunk_for)
+        # None: the one driver's choice per bucket, in every mode
+        # (compaction.chunk_for)
         self.chunk = None if chunk is None else int(chunk)
         # from_legacy owns the compact/mesh keyword mapping; a mesh decides
         # the device (its first), and a device= naming another raises

@@ -17,7 +17,7 @@ splits that into a two-stage pipeline:
       |
   [dispatch worker] feeds prepared buckets through the ``core/api.solve``
       front door (mode "mesh" over the scheduler's mesh, as in the
-      reference: the mesh-distributed compacting driver; on the card
+      reference: the compacting driver with the mesh's runner; on the card
       each chunk is one launch of the fused kernels, the default route
       there, and ``fused=False`` makes its propose steps launch
       ``slack_propose``) and resolves the per-request Futures
@@ -271,10 +271,10 @@ class AsyncOTScheduler:
       placement: mesh placement of each bucket ("auto", "batch",
         "matrix"; see ``core/distributed.choose_placement``).
       buckets: shape-bucket boundaries (core/batched.py defaults).
-      chunk: k, phases per dispatch of the compacting driver; None
-        (the default) lets the driver choose per bucket: one launch to
-        termination on the fused route when the bucket has no deadline,
-        else 8 (``core.compaction.chunk_for``).
+      chunk: k, phases per dispatch of the compacting driver, which
+        runs every mode; None (the default) lets the driver choose per
+        bucket: one launch to termination on the fused route when the
+        bucket has no deadline, else 8 (``core.compaction.chunk_for``).
       max_batch: max requests drained into one collate round.
       linger_ms: optional batching window — after the first request of a
         round arrives, keep draining for this long so co-tenant requests
@@ -340,7 +340,8 @@ class AsyncOTScheduler:
         self.metric = metric
         self.mesh = mesh
         self.buckets = tuple(buckets) if buckets else B.DEFAULT_BUCKETS
-        # None: the driver's choice per bucket (compaction.chunk_for)
+        # None: the one driver's choice per bucket, in every mode
+        # (compaction.chunk_for)
         self.chunk = None if chunk is None else int(chunk)
         # every bucket dispatch goes through core/api.solve under this one
         # policy; ``solver`` routes OT buckets through the solver

@@ -349,7 +349,7 @@ def test_syncaudit_missing_function():
 def test_synctarget_paths_exist():
     from repro_torch.analysis.syncaudit import default_targets
     targets = default_targets()
-    assert {t.func for t in targets} == {"_drive", "_drive_distributed"}
+    assert {t.func for t in targets} == {"_drive"}
     for t in targets:
         assert os.path.exists(str(t.path)), t
 

@@ -242,6 +242,40 @@ def test_compact_equals_mesh_on_the_port():
 
 
 @pytest.mark.parametrize("spec_name", ["assignment", "ot"])
+def test_debug_checks_scope_under_a_mesh(spec_name):
+    """The sanitizer keeps the reference's scope: a sharded mesh solve
+    stays plain under the debug checks (no ``"debug"`` read, the plain
+    state), while a mesh solve below its floor runs the checked
+    functions (the prologue's read, one a chunk and the epilogue's)."""
+    from repro_torch.analysis import set_debug_checks
+
+    sizes, eps, _ = CASES["ragged"]
+    spec = getattr(tproblem, spec_name.upper())
+    inputs = batch(spec_name, 11, sizes)
+    one = {kk: v[:1] for kk, v in inputs.items()}
+    _, plain = solve_mesh(spec, inputs, eps, _mesh(2), sizes=sizes, k=2,
+                          keep_state=True)
+    set_debug_checks(True)
+    try:
+        tdevice.reset_sync_counts()
+        _, sharded = solve_mesh(spec, inputs, eps, _mesh(2), sizes=sizes,
+                                k=2, keep_state=True)
+        sharded_reads = tdevice.sync_counts.get("debug", 0)
+        tdevice.reset_sync_counts()
+        _, below = solve_mesh(spec, one, 0.1, _mesh(4), k=2,
+                              keep_state=True)
+        below_reads = tdevice.sync_counts.get("debug", 0)
+    finally:
+        set_debug_checks(None)
+    assert sharded.devices_per_dispatch[0] == 2 and sharded_reads == 0
+    for f in plain.final_state._fields:
+        assert torch.equal(getattr(plain.final_state, f),
+                           getattr(sharded.final_state, f)), f
+    assert below.collapsed_at == 1
+    assert below_reads == below.dispatches + 2
+
+
+@pytest.mark.parametrize("spec_name", ["assignment", "ot"])
 def test_batch_placement_eight_lanes_on_eight_shards(spec_name):
     """B = 8 (two seeds of the parity batch), so D = 8 shards one lane
     each and re-buckets below the floor: the survivors collapse onto the

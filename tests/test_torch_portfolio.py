@@ -286,9 +286,12 @@ def test_lockstep_stops_when_lanes_converge():
     inputs = batch("ot", 5, None)
     tspec.reset_counts()
     tdevice.reset_sync_counts()
-    r, _ = SINKHORN.solve_lockstep(inputs, 0.05, device="cpu")
+    r, _ = tapi.solve(OT, inputs, 0.05,
+                      tapi.DispatchPolicy(mode="lockstep", solver="sinkhorn"),
+                      device="cpu")
     iters = int(r.phases.max())
-    cap = SINKHORN._lockstep_k(np.full(B, 0.05), 32) - 1
+    full = np.full(B, 32)
+    cap = int(tspec.sinkhorn_schedule(np.full(B, 0.05), full, full)[2].max())
     assert iters < cap // 100
     ran = tspec.counts["f_updates"]
     assert iters <= ran < iters + tsink._CHECK_EVERY

@@ -162,19 +162,33 @@ def test_explicit_chunk_is_honoured(recorder, above):
             if s["name"] == "driver.chunk"} == {k}
 
 
-@pytest.mark.parametrize("name", ["assignment", "ot"])
-def test_fused_lockstep_is_the_drivers_run_out(recorder, name):
-    """``mode="lockstep"`` on a fused spec is the compacting driver's own
-    run-out: one chunk, counted as ``runouts``, with the state of the
-    k = 8 chunk loop."""
+LOCKSTEP_CASES = {
+    # (problem, policy fields, eps)
+    "fused_assignment": ("assignment", {"fused": True}, 0.03),
+    "fused_ot": ("ot", {"fused": True}, 0.03),
+    "stepped_assignment": ("assignment", {"fused": False}, 0.03),
+    "stepped_ot": ("ot", {"fused": False}, 0.03),
+    "sinkhorn": ("ot", {"solver": "sinkhorn"}, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(LOCKSTEP_CASES))
+def test_fused_lockstep_is_the_drivers_run_out(recorder, case):
+    """``mode="lockstep"`` is the compacting driver's own run-out on every
+    route: one chunk and one read, counted as ``runouts``, with the state
+    of the k = 8 chunk loop on the same route."""
+    name, policy, eps = LOCKSTEP_CASES[case]
     spec = getattr(tapi, name.upper())
-    r, st = tapi.solve(spec, _bucket(name), 0.03,
-                       tapi.DispatchPolicy(mode="lockstep", fused=True),
+    tdevice.reset_sync_counts()
+    r, st = tapi.solve(spec, _bucket(name), eps,
+                       tapi.DispatchPolicy(mode="lockstep", **policy),
                        sizes=SIZES, keep_state=True, device="cpu")
+    assert tdevice.sync_counts["chunk"] == 1
+    assert (st.chunk, st.dispatches) == (0, 1)
     (root,) = [s for s in recorder.recorded() if s["name"] == "solve"]
     assert root["runouts"] == root["chunks"] == 1
-    _, st8 = tapi.solve(spec, _bucket(name), 0.03,
-                        tapi.DispatchPolicy(fused=True, chunk=8),
+    _, st8 = tapi.solve(spec, _bucket(name), eps,
+                        tapi.DispatchPolicy(chunk=8, **policy),
                         sizes=SIZES, keep_state=True, device="cpu")
     assert st8.dispatches > 1
     _assert_states_equal(st.final_state, st8.final_state, "lockstep")
