@@ -794,7 +794,10 @@ def main() -> int:
             "ep_launches": launches["ep"][name],
             "dryrun_launches": launches["dryrun"].get(name, 0),
             **({"stepped_ms": row["stepped_ms"]} if "stepped_ms" in row
-               else {})})
+               else {}),
+            # the path of csrc/fused_assignment.cu the row held
+            **({"path": row["path"], "cluster": row["cluster"]}
+               if "cluster" in row else {})})
     # fused_ot_phases at the pushrelabel router's shapes; its launches are
     # the Engine run's (phase 11 (c)), then the expert-parallel Engine
     # run's (phase 13 (a), the shapes of a 'dp' shard)
@@ -1375,6 +1378,17 @@ def fig1_generator(seed):
     return rng
 
 
+def _assignment_route(ops, c_int):
+    """The route ``fused_run_assignment_phases`` takes for ``c_int``'s
+    bucket (``ops.Route``: the path and C), and the name of the kernel it
+    launches there (the profiler's cross-check counts that kernel's
+    launches, so it also shows the path)."""
+    b, m, n = c_int.shape
+    route = ops.fused_assignment_route(b, m, n, ops._sm_count(c_int.device))
+    return route, ("fused_assignment_lane_kernel" if route.path == "lane"
+                   else "fused_assignment_kernel")
+
+
 def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
                         fig1_rng, seed) -> bool:
     """Each fused kernel for one k = 8 chunk from a state a few stepped
@@ -1391,6 +1405,7 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
     k = SIZES["fused_k"]
 
     c_int, s0, thr, cap, mv = fused_assignment_chunk(torch, rng, dev)
+    route, kernel_name = _assignment_route(ops, c_int)
     row_a = _fused_row(
         torch, ops, "fused_assignment_phases", tuple(c_int.shape),
         lambda: ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
@@ -1398,7 +1413,8 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
         lambda: type(s0)(*fused_assignment_phases_ref(
             c_int, *s0, thr, cap, mv, k=k)),
         lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
-        s0, c_int, k, "fused_assignment_kernel")
+        s0, c_int, k, kernel_name)
+    row_a.update(path=route.path, cluster=route.cluster)
     del c_int, s0
 
     c_int, s0, thr, cap, mr = fused_ot_chunk(torch, rng, dev)
@@ -1409,6 +1425,7 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
     # full width; the plain version takes ~0.4 s there, so it is timed once
     c_int, s0, thr, cap, mv = fused_assignment_full_chunk(torch, ops,
                                                           fig1_rng, dev)
+    route, kernel_name = _assignment_route(ops, c_int)
     row_f = _fused_row(
         torch, ops, "fused_assignment_phases", tuple(c_int.shape),
         lambda: ops.fused_run_assignment_phases(c_int, s0, thr, cap, k,
@@ -1416,8 +1433,9 @@ def phase_fused_kernels(torch, ops, rng, dev, rows, kernel_rows,
         lambda: type(s0)(*fused_assignment_phases_ref(
             c_int, *s0, thr, cap, mv, k=k)),
         lambda: run_assignment_phases(c_int, s0, thr, cap, k, m_valid=mv),
-        s0, c_int, k, "fused_assignment_kernel", plain_reps=1)
-    row_f.update(start_phase=int(s0.phases[0]),
+        s0, c_int, k, kernel_name, plain_reps=1)
+    row_f.update(path=route.path, cluster=route.cluster,
+                 start_phase=int(s0.phases[0]),
                  free_rows_before=int((s0.match_ba < 0).sum()))
     del c_int, s0
     torch.cuda.empty_cache()

@@ -17,9 +17,27 @@
 // What bounds it: a propose round reads the c_int row of every row that
 // still proposes (4 bytes per element); the rest of the state is a few
 // vectors. Late in a solve few rows are left, so a round lasts as long as
-// the scan of one row, and every round ends at a grid barrier.
+// the scan of one row and the barrier after it: the time goes to
+// latency, not bytes.
 //
-// Design: a persistent cooperative kernel (every block that can be
+// Two paths, one algorithm; kernels/ops.py::fused_assignment_route picks
+// one per launch from (B, m, n, the SM count) and passes it as `cluster`:
+//
+//   - the grid path (cluster 0): the whole bucket in lockstep on the whole
+//     card, a grid barrier a step. It brings every SM to a round of one
+//     large lane (the B = 1 Fig. 1 bucket, 10 000^2, whose early rounds
+//     read up to 400 MB), but every step of every lane pays a whole-card
+//     barrier and a chain of L2 round trips, and a phase lasts as long as
+//     its longest lane's matching.
+//   - the per-lane path (cluster C in 1..8): each lane alone in a
+//     thread-block cluster of C blocks, from its state in to termination
+//     or k phases, its loop state in shared memory and a cluster barrier
+//     a step; no lane waits for another. Bounded by a block's shared
+//     memory (8 bytes a column and 20 a row over C: m = n up to ~22 000)
+//     and m <= 65535 (its won packs round and row in 32 bits), and by C
+//     SMs' reads in a lane's early rounds. See "The per-lane path" below.
+//
+// The grid path. A persistent cooperative kernel (every block that can be
 // resident at once; cudaLaunchCooperativeKernel refuses more), the state
 // and scratch in global memory, grid.sync() between steps. Per chunk:
 //
@@ -77,7 +95,41 @@
 // available columns, which do not depend on the order in which other rows
 // of the round run; a column's winner is an atomicMin.
 //
-// Workspace (fused_assignment_workspace, 16-byte aligned pieces):
+// The per-lane path. Cluster q takes lanes q, q + Q, ... (Q clusters, as
+// many as can be resident, at most B), so a lane runs out on its own. Row
+// i of the lane lives in block i % C: its match_ba, y_b, prop and the
+// block's candidate lists, in shared memory. won and y_a of every column
+// are copied into each block: a scan reads them for every column, a
+// proposal writes one, so a proposal writes its key into the C copies
+// (red.shared::cluster.min through mapa) and every scan reads its own
+// block's. won is 32 bits, (round << 16) | row: a 64-bit atom.min on
+// another block's shared memory is not atomic on the H100 (a test of it
+// loses updates; the 32-bit one loses none). y_a changes at relabel only,
+// and each block relabels its copy. Per lane:
+//
+//   1 barrier at entry (state in, free rows counted), then per phase:
+//   round 0 | round 1 | ... | round R | push, relabel
+//
+// one cluster barrier after each step. Round r's proposers are round
+// r + 1's candidates, listed by the block that owns the row; the counts
+// that end a loop (a round's proposers, a phase's free rows) are written
+// into every block (st.shared::cluster), so every block of the cluster
+// takes the same branches and passes the same barriers. A block scans
+// its candidates a warp a row, or, with fewer candidates than warps, the
+// warps split over the rows and merge their minima through shared memory.
+// Inside the loop only the cost rows are read from device memory, in the
+// grid path's 16-byte __ldg loads, eight in flight a thread; match_ab is
+// written to the state out as columns are taken, the rest of the state
+// at the end. It needs no workspace. It is built for one and for two
+// blocks an SM; the launcher takes the second where the lanes outnumber
+// the first's resident clusters (15 clusters of 8 on an H100). Each
+// build is the faster on its side of that line: the 2-block build at
+// B = 16 (12.3 against 17.7 ms at 1024^2), the 1-block build, with more
+// registers a thread, at B = 2-8 (by a median 6 %, n = 1024 and 4096;
+// PERF.md section 6).
+//
+// Workspace of the grid path (fused_assignment_workspace, 16-byte aligned
+// pieces):
 //   won      (B, n) u64    winner of each column in this phase, ~0
 //   prop     (B, m) i32    last column a row of B' proposed to, -1
 //   cand     (2, B*m) i32  candidate rows b*m + i, by round parity
@@ -465,19 +517,470 @@ fused_assignment_kernel(Args a) {
   }
 }
 
+// ---- the per-lane path ----------------------------------------------------
+
+constexpr int kLaneThreads = 512;
+// loads of a row that a thread has in flight at once
+constexpr int kLaneBatch = 8;
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// won of the per-lane path: (round << 16) | row in 32 bits, so the lane
+// takes m <= 65535 (and so fewer than 65535 rounds)
+constexpr uint32_t kLaneFree = ~0u;
+constexpr int kLaneMaxRows = 65535;
+
+// Offsets, in bytes, of a block's pieces of a lane in dynamic shared
+// memory: won and y_a of every column (each block holds a copy), then
+// match_ba, y_b, prop and the two candidate lists of the block's rows
+// (row i lives in block i % C, at i / C).
+struct LaneLayout {
+  long long won, ya, mba, yb, prop, cand0, cand1, total;
+};
+
+__host__ __device__ LaneLayout lane_layout(int m, int n, int C) {
+  const long long rows = (m + C - 1) / C;
+  LaneLayout l;
+  long long at = 0;
+  auto take = [&at](long long bytes) {
+    const long long here = at;
+    at = align16(at + bytes);
+    return here;
+  };
+  l.won = take(4ll * n);
+  l.ya = take(4ll * n);
+  l.mba = take(4 * rows);
+  l.yb = take(4 * rows);
+  l.prop = take(4 * rows);
+  l.cand0 = take(4 * rows);
+  l.cand1 = take(4 * rows);
+  l.total = at;
+  return l;
+}
+
+// Another block's shared memory, in explicit shared::cluster addresses
+// (mapa, then st / atom on that window), not through generic pointers.
+__device__ __forceinline__ uint32_t cluster_addr(const void *p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void cluster_min(const uint32_t *p, uint32_t rank,
+                                            uint32_t v) {
+  asm volatile("red.shared::cluster.min.u32 [%0], %1;"
+               :
+               : "r"(cluster_addr(p, rank)), "r"(v)
+               : "memory");
+}
+
+// scan_row on the per-lane path: y_a and the 32-bit won in shared memory.
+template <bool kVec>
+__device__ __forceinline__ void scan_lane_row(const int *__restrict__ crow,
+                                              const int *ya,
+                                              const uint32_t *won, int yb,
+                                              uint32_t base, int n,
+                                              uint32_t r, int first, int step,
+                                              unsigned long long &best,
+                                              bool &any) {
+  // kLaneBatch loads of the row in flight before the first is used: a
+  // row of a few KB is one round trip to L2, not one per pair of loads
+  if constexpr (kVec) {
+    const int4 *c4 = reinterpret_cast<const int4 *>(crow);
+    const int4 *ya4 = reinterpret_cast<const int4 *>(ya);
+    const uint4 *w4 = reinterpret_cast<const uint4 *>(won);
+    const int n4 = n >> 2;
+    for (int q0 = first; q0 < n4; q0 += kLaneBatch * step) {
+      int4 cv[kLaneBatch];
+#pragma unroll
+      for (int u = 0; u < kLaneBatch; ++u) {
+        const int q = q0 + u * step;
+        if (q < n4) cv[u] = __ldg(c4 + q);
+      }
+#pragma unroll
+      for (int u = 0; u < kLaneBatch; ++u) {
+        const int q = q0 + u * step;
+        if (q < n4) {
+          const int4 yv = ya4[q];
+          const uint4 wv = w4[q];
+          const int j = q << 2;
+          visit(cv[u].x, yb, yv.x, (wv.x >> 16) >= r, base, j, best, any);
+          visit(cv[u].y, yb, yv.y, (wv.y >> 16) >= r, base, j + 1, best,
+                any);
+          visit(cv[u].z, yb, yv.z, (wv.z >> 16) >= r, base, j + 2, best,
+                any);
+          visit(cv[u].w, yb, yv.w, (wv.w >> 16) >= r, base, j + 3, best,
+                any);
+        }
+      }
+    }
+  } else {
+    for (int j0 = first; j0 < n; j0 += kLaneBatch * step) {
+      int cv[kLaneBatch];
+#pragma unroll
+      for (int u = 0; u < kLaneBatch; ++u) {
+        const int j = j0 + u * step;
+        if (j < n) cv[u] = __ldg(crow + j);
+      }
+#pragma unroll
+      for (int u = 0; u < kLaneBatch; ++u) {
+        const int j = j0 + u * step;
+        if (j < n)
+          visit(cv[u], yb, ya[j], (won[j] >> 16) >= r, base, j, best, any);
+      }
+    }
+  }
+}
+
+// Writes v into slot [rank] of `arr` in every block of the cluster.
+// Threads 0 .. C - 1 of the block call it.
+__device__ __forceinline__ void all_gather(int *arr, int rank, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;"
+               :
+               : "r"(cluster_addr(arr + rank, threadIdx.x)), "r"(v)
+               : "memory");
+}
+
+// One thread block cluster runs one lane at a time, from its state in to
+// termination or k phases, then takes the lane gridDim.x / C further on.
+// Every decision that ends a loop reads values that every thread of the
+// cluster computes alike (the all-gathered counts, ph), so all blocks pass
+// the same cluster barriers. kMinBlocks 2 caps the registers so that two
+// blocks fit an SM and twice the clusters can be resident.
+template <bool kVec, int kMinBlocks>
+__global__ void __launch_bounds__(kLaneThreads, kMinBlocks)
+fused_assignment_lane_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned long long s_best[kLaneWarps];
+  __shared__ int s_any[kLaneWarps];
+  __shared__ int s_len[2];                  // the block's lists, by parity
+  __shared__ int s_cnt[2][kMaxCluster];     // proposers, by round parity
+  __shared__ int s_free[kMaxCluster];       // free valid rows
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int Q = gridDim.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = a.m, n = a.n;
+  const LaneLayout l = lane_layout(m, n, C);
+  uint32_t *won = reinterpret_cast<uint32_t *>(smem + l.won);
+  int *ya = reinterpret_cast<int *>(smem + l.ya);
+  int *mba = reinterpret_cast<int *>(smem + l.mba);
+  int *yb = reinterpret_cast<int *>(smem + l.yb);
+  int *prop = reinterpret_cast<int *>(smem + l.prop);
+  int *cand0 = reinterpret_cast<int *>(smem + l.cand0);
+  int *cand1 = reinterpret_cast<int *>(smem + l.cand1);
+  // the block's rows: i = li * C + rank for li < nl
+  const int nl = rank < m ? (m - rank + C - 1) / C : 0;
+  const int mm_cap = min(m, n) + 1;
+
+  // every block of the cluster runs before any touches another's memory
+  cluster.sync();
+  for (int b = blockIdx.x / C; b < a.B; b += Q) {
+    const long long rb = (long long)b * m, cb = (long long)b * n;
+    const int thr = a.thr[b], cap = a.cap[b], mv = a.mvalid[b];
+    int ph = a.ph_in[b], rd = a.rd_in[b], sni = a.sni_in[b];
+    // the lane's state in: every column into each block, the block's rows
+    for (int j = tid; j < n; j += kLaneThreads) {
+      won[j] = kLaneFree;
+      ya[j] = a.ya_in[cb + j];
+    }
+    for (int j = rank * kLaneThreads + tid; j < n; j += C * kLaneThreads)
+      a.mab[cb + j] = a.mab_in[cb + j];
+    int nfree = 0;
+    for (int l0 = 0; l0 < nl; l0 += kLaneThreads) {
+      const int li = l0 + tid, i = li * C + rank;
+      bool f = false;
+      if (li < nl) {
+        const int v = a.mba_in[rb + i];
+        mba[li] = v;
+        yb[li] = a.yb_in[rb + i];
+        f = v < 0 && i < mv;
+      }
+      nfree += __syncthreads_count(f);
+    }
+    if (tid < C) all_gather(s_free, rank, nfree);
+    cluster.sync();
+
+    for (int p = 0; p < a.k; ++p) {
+      int free_total = 0;
+      for (int q = 0; q < C; ++q) free_total += s_free[q];
+      if (!(free_total > thr && ph < cap)) break;
+      // round 0's candidates: the block's rows of B'
+      if (tid == 0) s_len[0] = s_len[1] = 0;
+      __syncthreads();
+      for (int li = tid; li < nl; li += kLaneThreads) {
+        if (mba[li] < 0 && li * C + rank < mv) {
+          prop[li] = -1;
+          cand0[atomicAdd(&s_len[0], 1)] = li;
+        }
+      }
+      __syncthreads();
+
+      // (I) greedy maximal matching: one cluster barrier per round
+      for (int r = 0; r < mm_cap; ++r) {
+        if (r > 0) {
+          int proposed = 0;
+          for (int q = 0; q < C; ++q) proposed += s_cnt[(r - 1) & 1][q];
+          if (proposed == 0) break;   // round r - 1 had no proposer
+        }
+        ++rd;
+        const int *list = (r & 1) ? cand1 : cand0;
+        int *next = (r & 1) ? cand0 : cand1;
+        int *next_len = &s_len[(r + 1) & 1];
+        const int len = s_len[r & 1];
+        const uint32_t salt = round_salt(ph, r) * kH3;
+        // the warps of a group scan one row: a warp per row with at least
+        // as many rows as warps, else the warps split over the rows
+        const int G = len >= kLaneWarps ? 1 : kLaneWarps / max(len, 1);
+        const int per_pass = kLaneWarps / G;
+        for (int t0 = 0; t0 < len; t0 += per_pass) {
+          const int t = t0 + warp / G, g = warp % G;
+          int li = -1, i = 0;
+          unsigned long long best = ~0ull;
+          bool any = false;
+          if (warp < per_pass * G && t < len) {
+            li = list[t];
+            i = li * C + rank;
+            // a row that proposed in round r - 1 and won leaves
+            if (r > 0 && (won[prop[li]] & 0xFFFFu) == (uint32_t)i) li = -1;
+            if (li >= 0)
+              scan_lane_row<kVec>(a.c + (rb + i) * n, ya, won, yb[li],
+                                  (uint32_t)i * kH1 + salt, n, (uint32_t)r,
+                                  g * 32 + lane, G * 32, best, any);
+          }
+          best = warp_min(best);
+          any = __any_sync(0xFFFFFFFFu, any);
+          if (G > 1) {
+            if (lane == 0) {
+              s_best[warp] = best;
+              s_any[warp] = any;
+            }
+            __syncthreads();
+            if (g == 0 && li >= 0) {
+              for (int w = warp + 1; w < warp + G; ++w) {
+                best = s_best[w] < best ? s_best[w] : best;
+                any = any || s_any[w];
+              }
+            }
+            __syncthreads();
+          }
+          if (g == 0 && li >= 0 && any) {
+            const int col = (int)(best & 0xFFFFFFFFull);
+            // the lowest proposing row of the earliest round wins: into
+            // every block's copy of won
+            if (lane < C)
+              cluster_min(won + col, lane, ((uint32_t)r << 16) | (uint32_t)i);
+            if (lane == 0) {
+              prop[li] = col;
+              next[atomicAdd(next_len, 1)] = li;
+            }
+          }
+        }
+        __syncthreads();
+        if (tid < C) all_gather(s_cnt[r & 1], rank, *next_len);
+        // this round's list is round r + 2's; every thread has read it
+        if (tid == 0) s_len[r & 1] = 0;
+        cluster.sync();
+      }
+
+      // (II) push and (III) relabel
+      nfree = 0;
+      for (int l0 = 0; l0 < nl; l0 += kLaneThreads) {
+        const int li = l0 + tid, i = li * C + rank;
+        bool f = false;
+        if (li < nl) {
+          const bool row_ok = i < mv;
+          const int old = mba[li];
+          const bool in_bp = old < 0 && row_ok;
+          int w = -1;
+          if (in_bp) {
+            const int pc = prop[li];
+            if (pc >= 0 && (won[pc] & 0xFFFFu) == (uint32_t)i) w = pc;
+          }
+          const bool displaced = old >= 0 && won[old] != kLaneFree;
+          const int now = w >= 0 ? w : (displaced ? -1 : old);
+          mba[li] = now;
+          if (in_bp && w < 0) yb[li] += 1;
+          f = now < 0 && row_ok;
+        }
+        nfree += __syncthreads_count(f);
+      }
+      // every row has read won; each block relabels its own copy
+      for (int j = tid; j < n; j += kLaneThreads) {
+        const uint32_t w = won[j];
+        if (w != kLaneFree) {
+          ya[j] -= 1;
+          if ((j / kLaneThreads) % C == rank)
+            a.mab[cb + j] = (int)(w & 0xFFFFu);
+          won[j] = kLaneFree;
+        }
+      }
+      ph += 1;
+      sni += free_total;  // |B'|: the free valid rows
+      if (tid < C) all_gather(s_free, rank, nfree);
+      cluster.sync();
+    }
+
+    // the lane's state out
+    for (int li = tid; li < nl; li += kLaneThreads) {
+      a.mba[rb + li * C + rank] = mba[li];
+      a.yb[rb + li * C + rank] = yb[li];
+    }
+    for (int j = rank * kLaneThreads + tid; j < n; j += C * kLaneThreads)
+      a.ya[cb + j] = ya[j];
+    if (rank == 0 && tid == 0) {
+      a.ph[b] = ph;
+      a.rd[b] = rd;
+      a.sni[b] = sni;
+    }
+    // no block loads the next lane (or exits) while another reads its
+    // shared memory
+    cluster.sync();
+  }
+}
+
 }  // namespace
 
 // C interface for ctypes. Pointers are device pointers of contiguous
 // int32 tensors: c (B, m, n); the state in (match_ba, y_b (B, m);
 // match_ab, y_a (B, n); phases, rounds, sum_ni (B)); threshold,
 // phase_cap, m_valid (B); the state out, same shapes; ws a workspace of
-// fused_assignment_workspace(B, m, n) bytes. ``vec`` != 0 selects the
+// fused_assignment_workspace(B, m, n) bytes (the grid path's; the
+// per-lane path reads none and takes null). ``vec`` != 0 selects the
 // 16-byte loads (the caller checks n % 4 == 0 and 16-byte alignment of
-// c; y_a and the workspace are allocated aligned). Returns the
+// c; y_a and the workspace are allocated aligned). ``cluster`` 0 takes
+// the grid path, C in 1..8 the per-lane path in clusters of C blocks
+// (kernels/ops.py::fused_assignment_route chooses). Returns the
 // cudaError_t of the launch.
 extern "C" long long fused_assignment_workspace(int B, int m, int n) {
   return workspace_layout(B, m, n).total;
 }
+
+namespace {
+
+// Dynamic shared memory a block of `kernel` may take on this device (its
+// opt-in limit less its static part), or -1 if the device cannot say.
+long long lane_smem_max(void (*kernel)(Args)) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, kernel) != cudaSuccess)
+    return -1;
+  return (long long)optin - (long long)fa.sharedSizeBytes;
+}
+
+}  // namespace
+
+// The per-lane path's shared memory, for kernels/ops.py's rule to be held
+// against: a block's dynamic bytes for a lane of (m, n) in clusters of C,
+// and the most that a block may take on the current device (-1 if the
+// device cannot say).
+extern "C" long long fused_assignment_lane_smem(int m, int n, int C) {
+  return lane_layout(m, n, C).total;
+}
+
+extern "C" long long fused_assignment_lane_smem_max() {
+  return lane_smem_max(fused_assignment_lane_kernel<true, 1>);
+}
+
+namespace {
+
+int launch_grid(Args &a, void *ws, cudaStream_t stream) {
+  const Layout l = workspace_layout(a.B, a.m, a.n);
+  char *w = static_cast<char *>(ws);
+  a.won = reinterpret_cast<unsigned long long *>(w + l.won);
+  a.prop = reinterpret_cast<int *>(w + l.prop);
+  a.cand = reinterpret_cast<int *>(w + l.cand);
+  a.cand_len = reinterpret_cast<int *>(w + l.cand_len);
+  a.lane_on = reinterpret_cast<int *>(w + l.lane_on);
+  a.done = reinterpret_cast<int *>(w + l.done);
+  a.any_prop = reinterpret_cast<int *>(w + l.any_prop);
+  a.free_cnt = reinterpret_cast<int *>(w + l.free_cnt);
+
+  void (*kernel)(Args) = a.vec ? fused_assignment_kernel<true>
+                               : fused_assignment_kernel<false>;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every resident block, but no more than one warp per row needs
+  const long long want = ((long long)a.B * a.m + kWarps - 1) / kWarps;
+  const int grid = (int)std::min<long long>((long long)per_sm * sms,
+                                            std::max<long long>(want, 1));
+  void *args[] = {&a};
+  e = cudaLaunchCooperativeKernel((void *)kernel, dim3(grid),
+                                  dim3(kThreads), args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `cfg`'s shape of `kernel` can be resident, with
+// its dynamic shared memory set for `smem` bytes.
+cudaError_t lane_clusters(void (*kernel)(Args), long long smem,
+                          const cudaLaunchConfig_t &cfg, int *clusters) {
+  *clusters = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(clusters, (void *)kernel, &cfg);
+}
+
+int launch_lanes(Args &a, int C, cudaStream_t stream) {
+  if (C < 1 || C > kMaxCluster || a.m > kLaneMaxRows)
+    return (int)cudaErrorInvalidValue;
+  void (*one)(Args) = a.vec ? fused_assignment_lane_kernel<true, 1>
+                            : fused_assignment_lane_kernel<false, 1>;
+  void (*two)(Args) = a.vec ? fused_assignment_lane_kernel<true, 2>
+                            : fused_assignment_lane_kernel<false, 2>;
+  const long long smem = lane_layout(a.m, a.n, C).total;
+  // a lane that does not fit C blocks is the grid path's (the two builds
+  // have the same static shared memory)
+  if (smem > lane_smem_max(one)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * a.B);
+  cfg.blockDim = dim3(kLaneThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the 1-block build, unless the lanes outnumber its resident clusters
+  // and the 2-block build holds more
+  void (*kernel)(Args) = one;
+  int clusters = 0, clusters2 = 0;
+  cudaError_t e = lane_clusters(one, smem, cfg, &clusters);
+  if (e == cudaSuccess && clusters < a.B)
+    e = lane_clusters(two, smem, cfg, &clusters2);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters2 > clusters) {
+    kernel = two;
+    clusters = clusters2;
+  }
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  // every cluster that can be resident, no more than one a lane
+  cfg.gridDim = dim3(C * std::min(a.B, clusters));
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int fused_assignment_launch(
     const void *c, const void *mba_in, const void *mab_in,
@@ -485,13 +988,11 @@ extern "C" int fused_assignment_launch(
     const void *rd_in, const void *sni_in, const void *thr,
     const void *cap, const void *mvalid, void *mba, void *mab, void *yb,
     void *ya, void *ph, void *rd, void *sni, void *ws, int B, int m, int n,
-    int k, int vec, void *stream) {
+    int k, int vec, int cluster, void *stream) {
   if (B == 0 || m == 0 || n == 0 || k <= 0) return (int)cudaSuccess;
   // rows are numbered b * m + i in int32
   if ((long long)B * m >= INT_MAX) return (int)cudaErrorInvalidValue;
-  const Layout l = workspace_layout(B, m, n);
-  char *w = static_cast<char *>(ws);
-  Args a;
+  Args a = {};
   a.c = static_cast<const int *>(c);
   a.mba_in = static_cast<const int *>(mba_in);
   a.mab_in = static_cast<const int *>(mab_in);
@@ -510,41 +1011,11 @@ extern "C" int fused_assignment_launch(
   a.ph = static_cast<int *>(ph);
   a.rd = static_cast<int *>(rd);
   a.sni = static_cast<int *>(sni);
-  a.won = reinterpret_cast<unsigned long long *>(w + l.won);
-  a.prop = reinterpret_cast<int *>(w + l.prop);
-  a.cand = reinterpret_cast<int *>(w + l.cand);
-  a.cand_len = reinterpret_cast<int *>(w + l.cand_len);
-  a.lane_on = reinterpret_cast<int *>(w + l.lane_on);
-  a.done = reinterpret_cast<int *>(w + l.done);
-  a.any_prop = reinterpret_cast<int *>(w + l.any_prop);
-  a.free_cnt = reinterpret_cast<int *>(w + l.free_cnt);
   a.B = B;
   a.m = m;
   a.n = n;
   a.k = k;
   a.vec = vec;
-
-  void (*kernel)(Args) = vec ? fused_assignment_kernel<true>
-                             : fused_assignment_kernel<false>;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // every resident block, but no more than one warp per row needs
-  const long long want = ((long long)B * m + kWarps - 1) / kWarps;
-  const int grid = (int)std::min<long long>((long long)per_sm * sms,
-                                            std::max<long long>(want, 1));
-  void *args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel,
-                                  dim3(grid), dim3(kThreads), args, 0,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cluster > 0 ? launch_lanes(a, cluster, s) : launch_grid(a, ws, s);
 }

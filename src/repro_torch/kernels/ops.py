@@ -36,6 +36,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -60,7 +61,7 @@ _ENTRY = {
                     [_P] * 3 + [_I] * 6 + [_P]),
     "fused_assignment_phases": ("fused_assignment.cu",
                                 "fused_assignment_launch",
-                                [_P] * 19 + [_I] * 5 + [_P]),
+                                [_P] * 19 + [_I] * 6 + [_P]),
     "fused_ot_phases": ("fused_ot.cu", "fused_ot_launch",
                         [_P] * 20 + [_I] * 6 + [_P]),
     "sinkhorn_row_update": ("sinkhorn_row.cu", "sinkhorn_row_launch",
@@ -312,6 +313,95 @@ def cost_matrix(x, y, metric: str = "sqeuclidean"):
     return cost_matrix_batched(x[None], y[None], metric)[0]
 
 
+# --------------------------------------------------------------------------
+# The two paths of csrc/fused_assignment.cu and the rule between them.
+# --------------------------------------------------------------------------
+
+# Dynamic shared memory a block of the per-lane kernel may take on Hopper:
+# the 227 KB opt-in limit less 1 KB for its static part (held against the
+# kernel's own fused_assignment_lane_smem_max on the card).
+LANE_SMEM_BYTES = 227 * 1024 - 1024
+# Cluster sizes of the per-lane path, largest first, up to the portable 8.
+LANE_CLUSTERS = (8, 4, 2, 1)
+# The per-lane path packs (round, row) of a column's winner in 32 bits.
+LANE_MAX_ROWS = 65535
+
+
+class Route(NamedTuple):
+    """How a fused assignment bucket is launched. ``path`` is "grid" (one
+    cooperative grid over the card, the lanes in lockstep) or "lane" (a
+    thread-block cluster per lane); ``cluster`` is the blocks of a
+    cluster on the per-lane path (0 on the grid path). The launcher runs
+    as many clusters as can be resident, at most one a lane."""
+    path: str
+    cluster: int
+
+
+def lane_smem_bytes(m: int, n: int, cluster: int) -> int:
+    """Dynamic shared memory of one block of the per-lane path: won and
+    y_a of every column, and five vectors of the block's rows, 4 bytes an
+    entry, each 16-byte aligned (``lane_layout`` in
+    ``csrc/fused_assignment.cu``; held against its C entry
+    ``fused_assignment_lane_smem`` on the card)."""
+    def a16(x):
+        return (x + 15) & ~15
+    rows = -(-m // cluster)
+    return 2 * a16(4 * n) + 5 * a16(4 * rows)
+
+
+# A lane of at most this many cells (2048^2) is "small": C SMs scan a round
+# of all its rows in a few microseconds, and its time goes to the steps.
+LANE_SMALL_CELLS = 1 << 22
+
+
+def fused_assignment_route(b: int, m: int, n: int, sms: int) -> Route:
+    """The path of a (b, m, n) bucket on a card of ``sms`` SMs.
+
+    The per-lane path runs each lane alone in a cluster of C blocks, its
+    loop state in shared memory and a cluster barrier a step; the grid
+    path runs the bucket in lockstep on the whole card. A lane takes the
+    per-lane path where a cluster's blocks hold it (``lane_smem_bytes``
+    within ``LANE_SMEM_BYTES``, m within ``LANE_MAX_ROWS``) and
+
+    * it is small (m * n <= ``LANE_SMALL_CELLS``): its steps cost more
+      than its reads, so C is the largest of ``LANE_CLUSTERS`` with
+      b * C <= sms, every lane on its own SMs (1 where b > sms);
+    * or the bucket fills an eighth of the card at the largest C that
+      fits (8 * b * C >= sms): a large lane's early rounds read up to
+      4 m n bytes, which C SMs alone take long over, so it takes every SM
+      it can.
+
+    Everything else, the B = 1 Fig. 1 bucket (10 000^2) among it, takes
+    the grid path. Measured on an H100 (``tools/runout_width.py``, PERF.md
+    section 6): at n = 1024 the per-lane path wins at every B from 1 to
+    256 and the largest C with b * C <= 132 is the fastest; at n = 4096
+    the grid path wins at B = 1, the two are within 6 % at B = 2, and the
+    per-lane path wins from B = 4 on, by 1.3-1.6x, fastest at C = 8 also
+    where 64 lanes oversubscribe the card."""
+    fits = [c for c in LANE_CLUSTERS
+            if lane_smem_bytes(m, n, c) <= LANE_SMEM_BYTES]
+    if b < 1 or m > LANE_MAX_ROWS or not fits:
+        return Route("grid", 0)
+    if m * n <= LANE_SMALL_CELLS:
+        c = next((c for c in fits if b * c <= sms), fits[-1])
+    else:
+        c = fits[0]
+        if 8 * b * c < sms:
+            return Route("grid", 0)
+    return Route("lane", c)
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(dev) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_counts:
+        _sm_counts[i] = torch.cuda.get_device_properties(
+            i).multi_processor_count
+    return _sm_counts[i]
+
+
 def fused_run_assignment_phases(c_int, state, threshold, phase_cap, k: int,
                                 m_valid=None):
     """At most ``k`` assignment phases per lane in one launch: the fused
@@ -336,15 +426,32 @@ def fused_run_assignment_phases(c_int, state, threshold, phase_cap, k: int,
     for f, t in (("threshold", threshold), ("phase_cap", phase_cap),
                  ("m_valid", m_valid)):
         _check(f, t, torch.int32, (b,), dev)
+    return _fused_assignment_launch(
+        c_int, state, threshold, phase_cap, k, m_valid,
+        fused_assignment_route(b, m, n, _sm_count(dev)))
+
+
+def _fused_assignment_launch(c_int, state, threshold, phase_cap, k: int,
+                             m_valid, route: Route):
+    """One ``fused_assignment_phases`` launch on ``route``'s path, on
+    checked operands (contiguous, on one CUDA device)."""
+    b, m, n = c_int.shape
+    dev = c_int.device
     out = [torch.empty_like(t) for t in state]
     vec = int(n % 4 == 0 and c_int.data_ptr() % 16 == 0)
+    lane = route.path == "lane"
     with torch.cuda.device(dev):
-        ws = _workspace("fused_assignment_phases", b, m, n, dev)
+        # the per-lane path keeps its scratch in shared memory
+        ws = None if lane else _workspace("fused_assignment_phases", b, m,
+                                          n, dev)
         _launch("fused_assignment_phases", c_int.data_ptr(),
                 *(t.data_ptr() for t in state), threshold.data_ptr(),
                 phase_cap.data_ptr(), m_valid.data_ptr(),
-                *(t.data_ptr() for t in out), ws.data_ptr(), b, m, n,
-                int(k), vec, _stream(dev))
+                *(t.data_ptr() for t in out),
+                None if ws is None else ws.data_ptr(), b, m, n, int(k), vec,
+                route.cluster if lane else 0, _stream(dev))
+    if _tracing.recording():
+        _tracing.add("fused_assignment.lane_path", int(lane))
     return type(state)(*out)
 
 

@@ -287,39 +287,121 @@ FUSED_ASSIGNMENT_CASES = {
     # 32 768 rows of B' in the first rounds: more candidates than
     # resident warps, one warp per row
     "long_list_warp_per_row": (8, 4096, 4096, 8, 2, "stepped"),
-    # at most 300 candidates: one block per row throughout
+    # at most 300 candidates: one block per row throughout (on the
+    # per-lane path: the warps of a block split over the few rows)
     "short_list_block_per_row": (1, 300, 320, 8, 4, "plain"),
+    # more lanes than clusters can be resident: a cluster runs several
+    # lanes in turn
+    "more_lanes_than_clusters": (1200, 16, 16, 0, 1, "plain"),
+    # k = 8 chunks whose states chain, as the driver's chunk=8 loop runs
+    "chunk8_chain": (16, 256, 256, 8, 6, "plain"),
 }
+
+# How a case reaches each path of the kernel: through the wrapper's
+# internal launch with the route filled in. "lane" is the rule's per-lane
+# route where it takes one (else clusters of 8), "lane_c1" clusters of a
+# single block.
+FUSED_ASSIGNMENT_PATHS = ("grid", "lane", "lane_c1")
+
+
+def _assignment_route(path, b, m, n, dev):
+    if path == "grid":
+        return ops.Route("grid", 0)
+    if path == "lane_c1":
+        return ops.Route("lane", 1)
+    r = ops.fused_assignment_route(b, m, n, ops._sm_count(dev))
+    return r if r.path == "lane" else ops.Route("lane", 8)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", FUSED_ASSIGNMENT_PATHS)
 @pytest.mark.parametrize("case", list(FUSED_ASSIGNMENT_CASES))
-def test_fused_assignment_kernel_design_cases(dev, case):
+def test_fused_assignment_kernel_design_cases(dev, case, path):
     from repro_torch.core.pushrelabel import (init_assignment_state,
                                               run_assignment_phases)
     from repro_torch.kernels.fused_phase import fused_assignment_phases_ref
+    from repro_torch.obs import tracing
 
     b, m, n, k, chunks, oracle = FUSED_ASSIGNMENT_CASES[case]
     c, thr, cap, mv = _fused_assignment_inputs(dev, b, m, n, b * m + n)
     if case == "lane_below_threshold":
         thr[0] = m
     k = k or int(cap.max()) + 1
+    route = _assignment_route(path, b, m, n, dev)
+    if case == "more_lanes_than_clusters" and route.path == "lane":
+        # at most 2048 threads, so 4 blocks of the per-lane kernel, an SM
+        assert b > 4 * ops._sm_count(dev) // route.cluster
     got = ref = init_assignment_state(b, m, n, dev)
-    for _ in range(chunks):
-        got = ops.fused_run_assignment_phases(c, got, thr, cap, k,
-                                              m_valid=mv)
-        if oracle == "plain":
-            ref = type(ref)(*fused_assignment_phases_ref(c, *ref, thr, cap,
-                                                         mv, k=k))
-        else:
-            ref = run_assignment_phases(c, ref, thr, cap, k, m_valid=mv)
-        torch.cuda.synchronize()
-        assert _states_equal(got, ref)
+    tracing.clear()
+    tracing.record(True)
+    try:
+        for _ in range(chunks):
+            before = ops.launches["fused_assignment_phases"]
+            with tracing.root("solve"):
+                got = ops._fused_assignment_launch(c, got, thr, cap, k, mv,
+                                                   route)
+            assert ops.launches["fused_assignment_phases"] == before + 1
+            if oracle == "plain":
+                ref = type(ref)(*fused_assignment_phases_ref(
+                    c, *ref, thr, cap, mv, k=k))
+            else:
+                ref = run_assignment_phases(c, ref, thr, cap, k, m_valid=mv)
+            torch.cuda.synchronize()
+            assert _states_equal(got, ref)
+        lane = [s["fused_assignment"]["lane_path"]
+                for s in tracing.recorded() if s["name"] == "solve"]
+    finally:
+        tracing.record(None)
+        tracing.clear()
+    assert lane == [int(route.path == "lane")] * chunks
     phases = got.phases.tolist()
     if case == "lane_below_threshold":
         assert phases[0] == 0 and max(phases) > 0
     if case == "lanes_end_in_different_rounds":
         assert len(set(got.rounds.tolist())) > 1
+
+
+def _assignment_lib():
+    import ctypes
+
+    ops.build_kernels()
+    src = ops._CSRC / "fused_assignment.cu"
+    so = ops.BUILD_DIR / (f"libfused_assignment_phases-"
+                          f"{ops.source_digest(src)}.so")
+    lib = ctypes.CDLL(str(so))
+    for f, args in (("fused_assignment_lane_smem", [ctypes.c_int] * 3),
+                    ("fused_assignment_lane_smem_max", [])):
+        getattr(lib, f).argtypes = args
+        getattr(lib, f).restype = ctypes.c_longlong
+    return lib
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c", [(1024, 1024, 8), (1024, 1024, 1),
+                                   (10_000, 10_000, 8), (7, 5, 4),
+                                   (4096, 4096, 2), (300, 320, 8)])
+def test_lane_shared_memory_is_the_kernel_layout_on_card(dev, m, n, c):
+    """``ops.lane_smem_bytes`` is the kernel's own layout, and the rule's
+    budget ``ops.LANE_SMEM_BYTES`` is within what a block of the per-lane
+    kernel may take on this card, by at most 1 KB: the rule sends the
+    launcher no lane it refuses, and turns away none that it takes."""
+    lib = _assignment_lib()
+    assert ops.lane_smem_bytes(m, n, c) == lib.fused_assignment_lane_smem(
+        m, n, c)
+    most = lib.fused_assignment_lane_smem_max()
+    assert 0 <= most - ops.LANE_SMEM_BYTES <= 1024
+
+
+@pytest.mark.cuda
+def test_lane_path_refuses_a_non_portable_cluster(dev):
+    """The per-lane launcher takes clusters of at most the portable 8."""
+    b, m, n = 2, 64, 64
+    c, thr, cap, mv = _fused_assignment_inputs(dev, b, m, n, 5)
+    from repro_torch.core.pushrelabel import init_assignment_state
+    state = init_assignment_state(b, m, n, dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._fused_assignment_launch(c, state, thr, cap, 4, mv,
+                                     ops.Route("lane", 16))
 
 
 @pytest.mark.cuda

@@ -447,6 +447,10 @@ def test_each_wrapper_launches_under_its_tensors_device(monkeypatch, name):
     monkeypatch.setattr(ops, "_libs", {k: launcher(k) for k in ops._ENTRY})
     monkeypatch.setattr(ops, "_workspace_fns",
                         {k: workspace(k) for k in ops._WORKSPACE})
+    # the assignment kernel's grid path, the one that takes a workspace
+    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(ops, "fused_assignment_route",
+                        lambda *a: ops.Route("grid", 0))
     calls[name]()
     want = [(name, (cpu,))]
     if name in ops._WORKSPACE:
